@@ -1,0 +1,532 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0] [--out results.json]
+
+Builds the port's CUDA kernels from the sources in this checkout, then:
+
+1. kernels at deployment shapes (N=1,000,000 x d=768 table, B=4096 lanes,
+   C=64 candidates, L=16 beam, and the catapult init hop's C=41): each
+   kernel against its plain PyTorch version on the same inputs, timed
+   with CUDA events beside its plain version and its bound;
+2. the main path: ``create(IndexSpec(), corpus)`` on the tripclick
+   workload (20,000 x 24, 4,096 queries) — Vamana build plus catapult
+   search on the card — replayed twice in batches of 256, beside a
+   ``mode="diskann"`` twin, a ``hop_backend="fused"`` twin and a CPU twin
+   over the same graph, with recall against brute force;
+3. deployment width: 1,000,000 x 768 vectors, degree 64, over a random
+   regular graph, 4 batches of 4,096 queries under both hop backends.
+
+Kernel launch counts are set to 0 just before each path (the Vamana
+build, the catapult, diskann and fused replays, and each deployment-width
+backend) and read just after it; each path must show exactly the launches
+its batches imply (``expected_launches``).  Any failed check exits
+non-zero.  Prints the card's name and power
+limit first, a ``{"kernels": [...]}`` line, and as the last line
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
+reference package.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
+RTOL = 1e-5                    # 768-term sums added in different orders
+N, D, B, C, L = 1_000_000, 768, 4096, 64, 16
+C_INIT = 41                    # bucket_capacity + 1 catapult starts
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def hop_inputs(gen, vectors, b, c, l, dev):
+    """A mid-traversal hop at full width: true beam distances, -1 holes,
+    duplicate candidates, a beam id among the candidates, one all -1 lane
+    and an interior -1 before valid ids."""
+    from repro_torch.kernels import ref
+    n = vectors.shape[0]
+    q = vectors[torch.randint(0, n, (b,), generator=gen, device=dev)] \
+        + 0.1 * torch.randn((b, vectors.shape[1]), generator=gen, device=dev)
+    cand = torch.randint(0, n, (b, c), generator=gen, device=dev,
+                         dtype=torch.int32)
+    cand[torch.rand((b, c), generator=gen, device=dev) < 0.1] = -1
+    bids = torch.randint(0, n, (b, l), generator=gen, device=dev,
+                         dtype=torch.int32)
+    bids[torch.rand((b, l), generator=gen, device=dev) < 0.2] = -1
+    cand[:, 2] = cand[:, 1]
+    cand[:, -1] = bids[:, 0]
+    cand[0, 0] = -1
+    cand[-1] = -1
+    bd, order = torch.sort(ref.gather_distance_ref(vectors, bids, q), dim=1,
+                           stable=True)
+    bids = bids.gather(1, order).contiguous()
+    bexp = (bids < 0) | (torch.rand((b, l), generator=gen, device=dev) < 0.5)
+    return q.contiguous(), cand, bids, bd.contiguous(), bexp
+
+
+def unique_rows(ids) -> int:
+    """Distinct table rows a set of ids needs (each read once)."""
+    return int(torch.unique(ids[ids >= 0]).numel())
+
+
+def dist_agreement(got, want, name):
+    check(torch.equal(torch.isfinite(got), torch.isfinite(want)),
+          f"{name}: +inf positions differ from the plain version")
+    m = torch.isfinite(want)
+    err = (got[m] - want[m]).abs()
+    check(bool((err <= RTOL * want[m].abs()).all()),
+          f"{name}: distances differ beyond rtol {RTOL}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def phase_kernels(vectors, gen, dev) -> dict:
+    """Each kernel against its plain version at deployment shapes."""
+    from repro_torch.kernels import ops, ref
+    out = {}
+
+    # gather_distance: (N, d) table, (B, C) ids, (B, d) queries
+    q, cand, bids, bd, bexp = hop_inputs(gen, vectors, B, C, L, dev)
+    got = ops.gather_distance(vectors, cand, q)
+    want = ref.gather_distance_ref(vectors, cand, q)
+    err = dist_agreement(got, want, "gather_distance")
+    n_valid = int((cand >= 0).sum())
+    b_ms, b_by = bound(unique_rows(cand) * D * 4 + cand.numel() * 4
+                       + q.numel() * 4 + got.numel() * 4, 3.0 * D * n_valid)
+    out["gather_distance"] = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(lambda: ops.gather_distance(vectors, cand, q)),
+        plain_ms=cuda_ms(lambda: ref.gather_distance_ref(vectors, cand, q),
+                         reps=5),
+        shape=f"N={N} d={D} B={B} C={C}", tolerance=f"rtol {RTOL}")
+
+    # fused_hop_l2 at the traversal hop (C=64) and the init hop (C=41)
+    mismatched, errs = {}, []
+    for c, inputs in ((C, (q, cand, bids, bd, bexp)),
+                      (C_INIT, hop_inputs(gen, vectors, B, C_INIT, L, dev))):
+        hq, hc, hb, hd, he = inputs
+        got = ops.fused_hop_l2(vectors, hc, hq, hb, hd, he)
+        # bit for bit the composed hop: the plain merge over the gather
+        # kernel's distances (both kernels reduce through row_sqdist)
+        composed = ref._merge_ref(hc, ops.gather_distance(vectors, hc, hq),
+                                  hb, hd, he)
+        for g, w, what in zip(got, composed, ("ids", "dists", "exp",
+                                              "n_fresh")):
+            check(torch.equal(g, w), f"fused_hop_l2 C={c}: {what} differ "
+                                     f"from the composed hop's")
+        want = ref.fused_hop_ref(vectors, hc, hq, hb, hd, he)
+        errs.append(dist_agreement(got[1], want[1], f"fused_hop_l2 C={c}"))
+        check(torch.equal(got[3], want[3]),
+              f"fused_hop_l2 C={c}: n_fresh differs from the plain version")
+        # ids and flags must equal the plain version's on every lane whose
+        # first L+1 merged entries (an extra empty beam slot shows the
+        # first entry dropped) hold no two distances within 2*RTOL
+        def pad(t, v):
+            return torch.cat([t, torch.full((B, 1), v, dtype=t.dtype,
+                                            device=dev)], 1)
+        ext = ref.fused_hop_ref(vectors, hc, hq, pad(hb, -1),
+                                pad(hd, float("inf")), pad(he, True))[1]
+        nxt = ext[:, 1:]
+        tie_free = ((nxt - ext[:, :-1] > 2 * RTOL * nxt.abs())
+                    | ~torch.isfinite(nxt)).all(1)
+        lanes = ((got[0] != want[0]) | (got[2] != want[2])).any(1)
+        mismatched[c] = int(lanes.sum())
+        n_bad = int((lanes & tie_free).sum())
+        print(f"fused_hop_l2 C={c}: ids/exp differ from the plain version on "
+              f"{mismatched[c]} of {B} lanes, {n_bad} of them among the "
+              f"{int(tie_free.sum())} tie-free lanes; max |err| "
+              f"{errs[-1]:.3g}")
+        check(n_bad == 0, f"fused_hop_l2 C={c}: ids/exp differ from the "
+                          f"plain version on {n_bad} tie-free lanes")
+    n_valid = int((cand >= 0).sum())
+    hop_bytes = (unique_rows(cand) * D * 4 + cand.numel() * 4 + q.numel() * 4
+                 + 2 * B * L * (4 + 4 + 1) + B * 4)
+    b_ms, b_by = bound(hop_bytes, 3.0 * D * n_valid)
+    out["fused_hop_l2"] = dict(
+        max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(lambda: ops.fused_hop_l2(vectors, cand, q, bids, bd, bexp)),
+        plain_ms=cuda_ms(
+            lambda: ref.fused_hop_ref(vectors, cand, q, bids, bd, bexp), reps=5),
+        mismatched_lanes=mismatched,
+        shape=f"N={N} d={D} B={B} C={C} L={L} (and C={C_INIT} checked)",
+        tolerance=f"rtol {RTOL}; ids/exp equal except near-ties")
+
+    # lsh_hash: (B, d) queries, (8, d) hyperplanes
+    planes = torch.randn((8, D), generator=gen, device=dev)
+    got = ops.lsh_hash(q, planes)
+    want = ref.lsh_hash_ref(q, planes)
+    proj = q.double() @ planes.double().T
+    scale = q.double().norm(dim=1)[:, None] * planes.double().norm(dim=1)
+    near = proj.abs() <= RTOL * scale                            # (B, 8)
+    weights = 2 ** torch.arange(8, dtype=torch.int32, device=dev)
+    near_bits = (near.to(torch.int32) * weights).sum(1).to(torch.int32)
+    diff = got ^ want
+    # every query is compared: a bit may flip only where its projection
+    # sits within rounding of 0
+    check(not bool((diff & ~near_bits).any()),
+          "lsh_hash: a code bit differs from the plain version where its "
+          f"projection is farther than {RTOL}*|q|*|h| from 0")
+    n_diff = int((diff != 0).sum())
+    print(f"lsh_hash: {n_diff} of {B} codes differ from the plain version "
+          f"({int(near.any(1).sum())} queries have a projection near 0)")
+    b_ms, b_by = bound(q.numel() * 4 + planes.numel() * 4 + B * 4,
+                       2.0 * B * 8 * D)
+    out["lsh_hash"] = dict(
+        max_abs_err=float(n_diff), bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(lambda: ops.lsh_hash(q, planes)),
+        plain_ms=cuda_ms(lambda: ref.lsh_hash_ref(q, planes)),
+        near_zero_queries=int(near.any(1).sum()), codes_differing=n_diff,
+        shape=f"B={B} d={D} L=8",
+        tolerance=f"bits equal where |proj| > {RTOL}*|q|*|h|; max_abs_err "
+                  f"is the number of codes that differ")
+    for name, r in out.items():
+        print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    return out
+
+
+def device_busy_ms(fn) -> float:
+    """Device-busy ms of one call of ``fn``: the union of the card's
+    kernel/copy intervals in a ``torch.profiler`` trace (0.0 if the
+    profiler saw no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, covered = 0.0, float("-inf")
+    for start, end in spans:
+        if end > covered:
+            busy += end - max(start, covered)
+            covered = end
+    return busy / 1e3
+
+
+def idle_share(database, queries, **kw) -> dict:
+    """Wall ms of one ``publish=False`` search (unprofiled, after a warm
+    call) beside its device-busy ms (profiled run of the same search)."""
+    def search():
+        database.search(queries, publish=False, **kw)
+
+    search()
+    t0 = time.perf_counter()
+    search()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = device_busy_ms(search)
+    return dict(wall_ms=wall, device_busy_ms=busy,
+                idle_share=(1.0 - busy / wall) if busy > 0 else None)
+
+
+def brute_force_knn_cuda(corpus, queries, k, dev):
+    x = torch.as_tensor(corpus, device=dev)
+    out = []
+    for lo in range(0, queries.shape[0], 256):
+        q = torch.as_tensor(queries[lo: lo + 256], device=dev)
+        d = torch.square(q[:, None, :] - x[None]).sum(-1)
+        out.append(torch.topk(d, k, dim=1, largest=False).indices)
+    return torch.cat(out).to(torch.int32).cpu().numpy()
+
+
+def counted(fn):
+    """Run ``fn`` with every kernel launch count set to 0 just before it;
+    returns (its result, the counts read just after it)."""
+    from repro_torch.kernels import ops
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ops.LAUNCHES)
+
+
+def expected_launches(mode: str, hop_backend: str, loop_iters) -> dict:
+    """Kernel launches of a run of search batches whose beam searches
+    took ``loop_iters`` loop iterations each (a batch's iterations are the
+    largest ``hops`` of its lanes).  Per batch: catapult mode hashes once
+    and scores the catapult starts and the fallback (two gather-distance
+    launches); the init merge and every iteration are one gather-distance
+    launch unfused, one fused-hop launch fused."""
+    nb, it = len(loop_iters), int(sum(loop_iters))
+    lsh = nb if mode == "catapult" else 0
+    won = 2 * nb if mode == "catapult" else 0
+    if hop_backend == "fused":
+        return {"gather_distance": won, "lsh_hash": lsh,
+                "fused_hop_l2": nb + it}
+    return {"gather_distance": nb + it + won, "lsh_hash": lsh,
+            "fused_hop_l2": 0}
+
+
+def replay(database, queries, batch=256, passes=2):
+    """Replay the queries in order, ``passes`` times; per-pass results."""
+    res = []
+    for _ in range(passes):
+        ids, hops, used, ms, iters = [], [], [], [], []
+        for lo in range(0, queries.shape[0], batch):
+            t0 = time.perf_counter()
+            r = database.search(queries[lo: lo + batch], k=10)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            ids.append(r.ids)
+            hops.append(r.stats.hops)
+            used.append(r.stats.used)
+            iters.append(int(r.stats.hops.max()))
+        res.append(dict(ids=np.concatenate(ids), hops=np.concatenate(hops),
+                        used=np.concatenate(used), batch_ms=ms,
+                        loop_iters=iters))
+    return res
+
+
+def phase_main_path(seed: int, dev) -> dict:
+    from repro_torch import db
+    from repro_torch.core.engine import recall_at_k
+    from repro_torch.data import make_tripclick
+
+    wl = make_tripclick(seed=seed)
+    truth = brute_force_knn_cuda(wl.corpus, wl.queries, 10, dev)
+    paths = {}
+
+    def build():
+        t0 = time.perf_counter()
+        return db.create(db.IndexSpec(), wl.corpus), time.perf_counter() - t0
+
+    (cat, build_s), paths["build"] = counted(build)
+    check(paths["build"]["gather_distance"] > 0
+          and paths["build"]["lsh_hash"] == 0
+          and paths["build"]["fused_hop_l2"] == 0,
+          f"the Vamana build's searches did not run on the gather-distance "
+          f"kernel alone: {paths['build']}")
+    graph = (cat.backend._adj_np.copy(), cat.backend.medoid)
+    twins, runs = {}, {}
+    for name, mode, hb in (("catapult", "catapult", "unfused"),
+                           ("diskann", "diskann", "unfused"),
+                           ("fused", "catapult", "fused")):
+        def drive(mode=mode, hb=hb):
+            d = cat if mode == "catapult" and hb == "unfused" else db.create(
+                db.IndexSpec(mode=mode, hop_backend=hb), wl.corpus,
+                prebuilt=graph)
+            return d, replay(d, wl.queries)
+
+        (twins[name], runs[name]), paths[name] = counted(drive)
+        want = expected_launches(
+            mode, hb, [i for p in runs[name] for i in p["loop_iters"]])
+        check(paths[name] == want, f"{name} replay launched {paths[name]}, "
+                                   f"its batches imply {want}")
+    profiled = {name: idle_share(d, wl.queries[-256:], k=10)
+                for name, d in twins.items()}
+    cpu_twin = db.create(db.IndexSpec(), wl.corpus, prebuilt=graph,
+                         device="cpu")
+    runs["cpu"] = replay(cpu_twin, wl.queries)
+
+    out = {"build_s": build_s, "launches": paths,
+           "one_batch_256": profiled}
+    for name, passes in runs.items():
+        for i, p in enumerate(passes):
+            out[f"{name}_pass{i + 1}"] = dict(
+                recall_at_10=recall_at_k(p["ids"], truth),
+                mean_hops=float(p["hops"].mean()),
+                used=float(p["used"].mean()),
+                batch_ms_mean=float(np.mean(p["batch_ms"])),
+                batch_ms_p50=float(np.median(p["batch_ms"])))
+    for k, v in out.items():
+        print(f"main path {k}: {v}")
+    c1, c2 = out["catapult_pass1"], out["catapult_pass2"]
+    dk = out["diskann_pass2"]
+    check(c2["mean_hops"] < c1["mean_hops"],
+          "catapult hops did not fall on the second pass")
+    check(c2["mean_hops"] < dk["mean_hops"],
+          "catapult hops are not below diskann's")
+    check(c2["used"] >= 0.9, f"catapult used {c2['used']} < 0.9")
+    check(c2["recall_at_10"] >= dk["recall_at_10"] - 0.01,
+          "catapult recall fell more than 1 point below diskann's")
+    for i in (1, 2):
+        check(abs(out[f"cpu_pass{i}"]["recall_at_10"]
+                  - out[f"catapult_pass{i}"]["recall_at_10"]) <= 0.01,
+              "the CPU twin's recall is not within 1 point of the card's")
+        check(np.array_equal(runs["fused"][i - 1]["ids"],
+                             runs["catapult"][i - 1]["ids"]),
+              "hop_backend='fused' ids differ from 'unfused'")
+    return out
+
+
+def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
+    from repro_torch import db
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.vamana import _random_regular_init, medoid_index
+    from repro_torch.kernels import ops
+
+    vec_np = vectors.cpu().numpy()
+    rng = np.random.default_rng(seed)
+    graph = (_random_regular_init(N, 64, rng), medoid_index(vec_np))
+    rows = torch.randint(0, N, (4 * B,), generator=gen, device=dev)
+    queries = (vectors[rows] + 0.1 * torch.randn((4 * B, D), generator=gen,
+                                                 device=dev)).cpu().numpy()
+    torch.cuda.reset_peak_memory_stats()
+    out, ids, paths = {}, {}, {}
+    for hb in ("unfused", "fused"):
+        def drive(hb=hb):
+            t0 = time.perf_counter()
+            d = db.create(db.IndexSpec(dim=D, degree=64, hop_backend=hb),
+                          vec_np, prebuilt=graph)
+            create_s = time.perf_counter() - t0
+            ms, hops, got = [], [], []
+            for i in range(4):
+                t0 = time.perf_counter()
+                r = d.search(queries[i * B: (i + 1) * B], k=10,
+                             beam_width=16, max_iters=64)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                hops.append(r.stats.hops)
+                got.append(r.ids)
+            return d, create_s, ms, hops, got
+
+        (d, create_s, ms, hops, got), paths[hb] = counted(drive)
+        want = expected_launches("catapult", hb, [int(h.max()) for h in hops])
+        check(paths[hb] == want, f"deployment width {hb}: launched "
+                                 f"{paths[hb]}, its batches imply {want}")
+        ids[hb] = np.concatenate(got)
+        prof = idle_share(d, queries[:B], k=10, beam_width=16, max_iters=64)
+        iters = float(np.mean([h.max() for h in hops]))
+        k_ms = kernel_ms["fused_hop_l2" if hb == "fused" else "gather_distance"]
+        out[hb] = dict(create_s=create_s, batch_ms=ms,
+                       batch_ms_mean=float(np.mean(ms)),
+                       mean_hops=float(np.mean(np.concatenate(hops))),
+                       loop_iterations=iters,
+                       host_ms_per_hop=(float(np.mean(ms)) - iters * k_ms)
+                       / iters, one_batch=prof)
+        if hb == "unfused":
+            # the serial-LRU publish of one 4096-query batch, on the host
+            st = d.backend._cat
+            qd = torch.as_tensor(queries[:B], device=dev)
+            hashes = ops.lsh_hash(qd, st.lsh.hyperplanes)
+            best = torch.as_tensor(ids[hb][:B, 0], device=dev)
+            tags = torch.full((B,), -1, dtype=torch.int32, device=dev)
+            for nb in (256, B):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    bk.publish(st.buckets, hashes[:nb], best[:nb], tags[:nb])
+                out[f"publish_host_ms_b{nb}"] = \
+                    (time.perf_counter() - t0) * 1e3 / 3
+        del d
+    out["launches"] = paths
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    flag = torch.ones(1, dtype=torch.bool, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        bool(flag.any())
+    out["sync_roundtrip_us"] = (time.perf_counter() - t0) * 1e6 / 200
+    print(f"deployment width: {out}")
+    check(np.array_equal(ids["unfused"], ids["fused"]),
+          "deployment width: fused and unfused ids differ")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None,
+                    help="also write every number of the run to this JSON")
+    args = ap.parse_args()
+
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke.py: src/repro_torch not found beside this script; "
+              "run it from a checkout of the repository", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: torch.cuda.is_available() is False; this "
+              "smoke run needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build_dir = _build.build_all()
+    build_s = time.perf_counter() - t0
+    print(f"kernels built in {build_s:.1f} s into {build_dir}", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    vectors = torch.randn((N, D), generator=gen, device=dev)
+    kernels = phase_kernels(vectors, gen, dev)
+    main_path = phase_main_path(args.seed, dev)
+    deploy = phase_deployment(vectors, gen, args.seed, dev,
+                              {k: v["ms"] for k, v in kernels.items()})
+
+    sources = {"fused_hop_l2": ("fused_hop.cu", "fused_hop.py:160"),
+               "gather_distance": ("gather_distance.cu",
+                                   "gather_distance.py:35"),
+               "lsh_hash": ("lsh_hash.cu", "lsh_hash.py:29")}
+    by_path = {**main_path["launches"],
+               **{f"deployment_{hb}": n
+                  for hb, n in deploy["launches"].items()}}
+    line = {"kernels": [
+        {"name": name, "route": "cuda",
+         "source": f"src/repro_torch/kernels/csrc/{src}",
+         "replaces": f"src/repro/kernels/{tpu}",
+         "launches": sum(n[name] for n in by_path.values()),
+         "launches_by_path": {p: n[name] for p, n in by_path.items()},
+         "max_abs_err": kernels[name]["max_abs_err"],
+         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
+         "bound_ms": kernels[name]["bound_ms"],
+         "bound_by": kernels[name]["bound_by"], "library_ms": None}
+        for name, (src, tpu) in sources.items()]}
+    if args.out:
+        ptxas = {p.stem: p.read_text() for p in build_dir.glob("*.log")}
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(
+            {"card": card, "build_s": build_s, "kernels": kernels,
+             "main_path": main_path, "deployment": deploy, "ptxas": ptxas,
+             "kernels_line": line}, indent=1, default=str))
+    print(json.dumps(line))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

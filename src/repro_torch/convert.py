@@ -1,0 +1,30 @@
+"""Carry the reference package's state across to the port.
+
+The port cannot replay ``jax.random``, so state that the reference drew
+from it is transplanted instead of reseeded.  Everything here takes
+plain numpy (the caller extracts it from the reference) and returns the
+port's state on a given device:
+
+* the catapult layer: LSH hyperplanes + bucket tables in the reference's
+  ``buckets.to_arrays`` schema (``ids``/``stamp``/``tag``/``step``),
+* the graph needs no helper: pass ``prebuilt=(adjacency, medoid)`` to
+  ``repro_torch.db.create``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import buckets as bk
+from repro_torch.core.catapult import CatapultState
+from repro_torch.core.lsh import LSHParams
+from repro_torch.device import resolve_device
+
+
+def catapult_state_from_numpy(hyperplanes: np.ndarray, bucket_arrays,
+                              device="cuda") -> CatapultState:
+    """(n_bits, d) hyperplanes + a ``to_arrays`` dict -> CatapultState."""
+    device = resolve_device(device)
+    h = torch.tensor(np.asarray(hyperplanes, np.float32), device=device)
+    return CatapultState(lsh=LSHParams(hyperplanes=h),
+                         buckets=bk.from_arrays(bucket_arrays, device))

@@ -1,0 +1,26 @@
+"""repro_torch.core — CatapultDB's search machinery in PyTorch.
+
+Vamana construction, DiskANN beam search (Algorithm 1), random-hyperplane
+LSH, the catapult buckets and Algorithm 2, and the RAM-tier engine.
+"""
+from repro_torch.core.beam_search import (SearchSpec, beam_search,
+                                          beam_search_l2, l2_dist_fn)
+from repro_torch.core.buckets import (BucketState, evict_ids, lookup,
+                                      make_buckets, publish)
+from repro_torch.core.catapult import (CatapultState, catapulted_lookup,
+                                       make_catapult_state)
+from repro_torch.core.engine import (RamStore, SearchStats,
+                                     VectorSearchEngine, brute_force_knn,
+                                     recall_at_k)
+from repro_torch.core.lsh import LSHParams, hash_codes, make_lsh
+from repro_torch.core.vamana import (VamanaParams, build_vamana,
+                                     medoid_index, robust_prune)
+
+__all__ = [
+    "SearchSpec", "beam_search", "beam_search_l2", "l2_dist_fn",
+    "BucketState", "evict_ids", "make_buckets", "lookup", "publish",
+    "CatapultState", "catapulted_lookup", "make_catapult_state",
+    "SearchStats", "VectorSearchEngine", "brute_force_knn", "recall_at_k",
+    "RamStore", "VamanaParams", "build_vamana", "medoid_index",
+    "robust_prune", "LSHParams", "hash_codes", "make_lsh",
+]

@@ -1,0 +1,68 @@
+"""Synthetic evaluation workloads — a copy of the reference's generators.
+
+The port keeps its own copy of ``repro/data/workloads.py``'s
+``Workload``, ``_clustered_corpus`` and ``make_tripclick`` (numpy only),
+so the same seed gives the same corpus and queries in both packages.
+
+tripclick — session random-walk over topic clusters: real user traffic's
+temporal locality (bursts of related queries) replayed in order.
+Corpora are Gaussian cluster mixtures on a connected manifold; ambient
+d defaults to 24, the intrinsic-dimension regime of real text
+embeddings.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Workload:
+    name: str
+    corpus: np.ndarray                 # (N, d)
+    queries: np.ndarray                # (Q, d), replayed in order
+    labels: np.ndarray | None = None   # (N,) corpus labels (papers)
+    filter_labels: np.ndarray | None = None  # (Q,) query predicates
+    meta: dict | None = None           # generator annotations
+
+
+def _clustered_corpus(n, d, n_clusters, rng, spread=1.0, sep=1.5,
+                      background=0.15):
+    """Topic clusters embedded in a continuous manifold: density modes
+    plus a background fraction, which keeps the corpus greedy-navigable
+    while preserving the locality structure the workloads test."""
+    centers = rng.normal(size=(n_clusters, d)).astype(np.float32) * sep
+    assign = rng.integers(0, n_clusters, n)
+    pts = centers[assign] + spread * rng.normal(size=(n, d)).astype(np.float32)
+    nb = int(n * background)
+    if nb:
+        scale = float(np.abs(centers).max() * 1.2)
+        pts[:nb] = rng.normal(size=(nb, d)).astype(np.float32) * scale * 0.6
+        assign[:nb] = -1
+    return pts.astype(np.float32), centers, assign
+
+
+def make_tripclick(n=20_000, d=24, n_clusters=64, n_queries=4_096, seed=0,
+                   session_len=16, hot_frac=0.2):
+    """Temporal locality: sessions orbit a *document* of a popular topic.
+    Popularity is heavy-tailed."""
+    rng = np.random.default_rng(seed)
+    corpus, centers, assign = _clustered_corpus(n, d, n_clusters, rng)
+    n_hot = max(1, int(n_clusters * hot_frac))
+    popular = rng.permutation(n_clusters)[:n_hot]
+    by_topic = [np.nonzero(assign == t)[0] for t in range(n_clusters)]
+    qs = []
+    while len(qs) < n_queries:
+        topic = popular[rng.integers(0, n_hot)] if rng.random() < 0.8 \
+            else rng.integers(0, n_clusters)
+        docs = by_topic[topic]
+        if docs.size == 0:
+            continue
+        anchor = corpus[docs[rng.integers(0, docs.size)]]
+        for _ in range(session_len):
+            qs.append(anchor + 0.25 * rng.normal(size=d))
+            if len(qs) >= n_queries:
+                break
+    return Workload("tripclick", corpus,
+                    np.asarray(qs, np.float32))

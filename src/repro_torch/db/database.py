@@ -1,0 +1,193 @@
+"""The ``Database`` facade — RAM tier.
+
+Port of ``repro/db/database.py`` for this slice: ``search`` (a
+``SearchRequest`` or a raw query array with keywords, per-request
+``publish``, ``explain=True`` traces), ``metrics``, ``warm``, ``close``,
+``n_active`` and ``dim``.  Every search passes an explicit all-True or
+all-False ``publish_mask``, as the reference's does.  The mutation,
+persistence and serving methods raise ``NotImplementedError`` naming
+the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec,
+                                 SearchRequest, SearchResult)
+from repro_torch.obs import MetricsRegistry, TraceRecorder, build_search_trace
+
+# batch-mean hop counts per search — graph-walk lengths, not latencies
+_HOP_EDGES = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0)
+
+
+def _not_ported(op: str, item: str):
+    raise NotImplementedError(f"Database.{op} is not ported to repro_torch "
+                              f"yet ({item})")
+
+
+class Database:
+    """CatapultDB handle over the RAM engine; construct via
+    ``repro_torch.db.create``, never directly."""
+
+    def __init__(self, backend, spec: IndexSpec, caps: Caps):
+        self.backend = backend       # the internal engine
+        self.spec = spec
+        self.caps = caps
+        self.last_warm_ms: Optional[float] = None
+        self.registry = MetricsRegistry(enabled=spec.metrics)
+        reg = self.registry
+        self._m_requests = reg.counter("catapultdb_search_requests_total")
+        self._m_queries = reg.counter("catapultdb_search_queries_total")
+        self._m_explains = reg.counter("catapultdb_search_explain_total")
+        self._m_latency = reg.histogram("catapultdb_search_latency_ms")
+        self._m_hops = reg.histogram("catapultdb_search_hops",
+                                     edges=_HOP_EDGES)
+        self._m_used = reg.counter("catapultdb_catapult_used_total")
+        self._m_won = reg.counter("catapultdb_catapult_won_total")
+
+    def _record_search(self, batch: int, ms: float, stats,
+                       explained: bool) -> None:
+        self._m_requests.inc()
+        self._m_queries.inc(batch)
+        self._m_latency.observe(ms)
+        self._m_hops.observe(float(np.mean(stats.hops)))
+        used = int(np.asarray(stats.used).sum())
+        if used:
+            self._m_used.inc(used)
+        won = int(np.asarray(stats.won).sum())
+        if won:
+            self._m_won.inc(won)
+        if explained:
+            self._m_explains.inc()
+
+    def metrics(self, fmt: str = "dict"):
+        """One snapshot of every published metric: ``'dict'`` (default),
+        ``'json'`` or ``'prometheus'`` text."""
+        if fmt == "dict":
+            return self.registry.snapshot()
+        if fmt == "json":
+            return self.registry.to_json()
+        if fmt == "prometheus":
+            return self.registry.to_prometheus()
+        raise ValueError(f"fmt must be 'dict', 'json' or 'prometheus', "
+                         f"got {fmt!r}")
+
+    # ---------------------------------------------------------------- search
+    def search(self, request, *, k: Optional[int] = None,
+               beam_width: Optional[int] = None,
+               filter_labels: Optional[np.ndarray] = None,
+               publish: Optional[bool] = None,
+               max_iters: Optional[int] = None,
+               explain: bool = False):
+        """Serve one batched request.
+
+        ``request`` is a ``SearchRequest`` — or a raw (B, d) query array
+        with the request fields as keyword arguments; keywords alongside
+        a ``SearchRequest`` raise.  ``explain=True`` returns a
+        ``repro_torch.obs.SearchTrace`` (same ids/dists, plus entry
+        points, catapult counts, hops and stage times).
+        """
+        if isinstance(request, SearchRequest):
+            extras = dict(k=k, beam_width=beam_width,
+                          filter_labels=filter_labels, publish=publish,
+                          max_iters=max_iters)
+            passed = [name for name, v in extras.items() if v is not None]
+            if passed:
+                raise TypeError(
+                    f"got a SearchRequest AND keyword(s) {passed}; set "
+                    f"the fields on the request (dataclasses.replace) "
+                    f"instead")
+        else:
+            request = SearchRequest(queries=request, k=k,
+                                    beam_width=beam_width,
+                                    filter_labels=filter_labels,
+                                    publish=publish is not False,
+                                    max_iters=max_iters)
+        if request.filter_labels is not None and not self.caps.filtered:
+            raise CapabilityError(
+                f"filter_labels on an unfiltered index (tier="
+                f"{self.caps.tier}); build with IndexSpec(filters=True) "
+                f"and labels")
+        q = np.ascontiguousarray(request.queries, np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        mask = np.full(q.shape[0], bool(request.publish), bool)
+        kk = request.k or self.spec.k
+        bw = request.beam_width or self.spec.beam_width
+        recorder = TraceRecorder() if explain else None
+        timed = explain or self.registry.enabled
+        t0 = time.perf_counter() if timed else 0.0
+        ids, dists, stats = self.backend.search(
+            q, k=kk, beam_width=bw, max_iters=request.max_iters,
+            publish_mask=mask, trace=recorder)
+        total_ms = (time.perf_counter() - t0) * 1e3 if timed else 0.0
+        if self.registry.enabled:
+            self._record_search(q.shape[0], total_ms, stats, explain)
+        if explain:
+            return build_search_trace(
+                ids=ids, dists=dists, stats=stats, tier=self.caps.tier,
+                mode=self.backend.mode, k=kk, beam_width=bw,
+                filter_labels=None, recorder=recorder, total_ms=total_ms)
+        return SearchResult(ids=ids, dists=dists, stats=stats)
+
+    def warm(self, batch_shapes=None, *, k: Optional[int] = None,
+             beam_width: Optional[int] = None) -> float:
+        """One throwaway ``publish=False`` search per declared batch size
+        (bucket state untouched); on the card this builds and loads the
+        kernels and settles the allocator.  Returns elapsed ms."""
+        shapes = tuple(batch_shapes if batch_shapes is not None
+                       else self.spec.warm_batch_shapes)
+        t0 = time.perf_counter()
+        for b in shapes:
+            q = np.zeros((int(b), self.dim), np.float32)
+            self.search(q, k=k, beam_width=beam_width, publish=False)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.last_warm_ms = ms
+        if self.registry.enabled:
+            self.registry.gauge("catapultdb_warm_total_ms").set(ms)
+        return ms
+
+    def close(self) -> None:
+        """The RAM tier holds no file or pool to release."""
+
+    def __enter__(self) -> "Database":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    @property
+    def n_active(self) -> int:
+        return self.backend.n_active
+
+    @property
+    def dim(self) -> int:
+        return int(self.backend._vec_np.shape[1])
+
+    # ------------------------------------------------ not in this slice yet
+    def upsert(self, vectors, labels=None, *, keys=None):
+        _not_ported("upsert", "ROADMAP queue 1, items 5 and 10")
+
+    def delete(self, ids=None, *, keys=None):
+        _not_ported("delete", "ROADMAP queue 1, item 5")
+
+    def consolidate(self):
+        _not_ported("consolidate", "ROADMAP queue 1, item 5")
+
+    def save(self):
+        _not_ported("save", "ROADMAP queue 1, item 8 (persistent tiers)")
+
+    def serve(self, **kwargs):
+        _not_ported("serve", "ROADMAP queue 1, item 7")
+
+    def attach_maintainer(self, policy=None, tick_every=None):
+        _not_ported("attach_maintainer", "ROADMAP queue 1, item 7")
+
+    def ingest_queue(self, batch_size=None):
+        _not_ported("ingest_queue", "ROADMAP queue 1, item 10")
+
+    def io_stats(self, reset: bool = False):
+        _not_ported("io_stats", "ROADMAP queue 1, item 8")

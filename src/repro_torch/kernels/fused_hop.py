@@ -1,0 +1,34 @@
+"""The fused-hop backend ``core.beam_search`` dispatches on.
+
+A backend IS a dist_fn — a callable ``(queries (B, d), ids (B, M)) ->
+(B, M)`` distances, so catapult entry scoring behaves identically on
+either backend — that additionally carries the vector table and exposes
+``hop_batch``, the whole-batch fused hop.  ``beam_search`` duck-types on
+``is_fused_hop``.  Mirrors ``repro/kernels/fused_hop.py:FusedL2Hop``.
+
+On the card ``__call__`` is the gather-distance kernel and ``hop_batch``
+the fused-hop kernel; both share one distance routine, so the fused and
+composed hops return bit-identical beams.  On the CPU both take the
+plain versions.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import ops
+
+
+class FusedL2Hop:
+    """Full-precision L2 hop backend over a device vector table."""
+
+    is_fused_hop = True
+
+    def __init__(self, vectors: torch.Tensor):
+        self.vectors = vectors
+
+    def __call__(self, queries: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+        return ops.gather_distance(self.vectors, ids, queries)
+
+    def hop_batch(self, queries, cand_ids, beam_ids, beam_dists, beam_exp):
+        return ops.fused_hop_l2(self.vectors, cand_ids, queries, beam_ids,
+                                beam_dists, beam_exp)

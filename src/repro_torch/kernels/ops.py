@@ -1,0 +1,161 @@
+"""Public wrappers of the port's hand-written kernels.
+
+One wrapper per kernel.  Each checks device, dtype (float32 vectors,
+int32 ids), shape and contiguity, then picks its path by the device of
+the tensors it was given:
+
+* all on the CPU  -> the plain PyTorch version in ``ref.py``,
+* all on the card -> the CUDA kernel (``csrc/*.cu``, built and loaded by
+  ``_build``), launched on ``torch.cuda.current_stream()`` into outputs
+  allocated here with ``torch.empty``; a launch that returns a non-zero
+  ``cudaError_t`` raises.  There is no fallback from the card to the
+  plain version.
+
+``LAUNCHES`` counts kernel launches, one per wrapper call that launched
+(plain-version calls never count), so a run can show that its main path
+went through the kernels; callers reset it by assigning 0.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels._build import library
+
+LAUNCHES = {"gather_distance": 0, "lsh_hash": 0, "fused_hop_l2": 0}
+
+# bucket tables hold 2**L rows and codes are non-negative int32
+MAX_LSH_BITS = 30
+# the fused hop keeps [beam | candidates] in static-size shared memory
+MAX_SMEM_BYTES = 48 * 1024
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
+           device: torch.device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-d, got shape "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _on_card(device: torch.device) -> bool:
+    """True for CUDA tensors; False for CPU tensors; raises otherwise."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel or plain version for device {device}")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed with cudaError_t "
+                           f"{rc}")
+
+
+def gather_distance(vectors: torch.Tensor, ids: torch.Tensor,
+                    queries: torch.Tensor) -> torch.Tensor:
+    """(N, d) f32 table, (B, C) int32 ids, (B, d) f32 queries -> (B, C)
+    f32 squared L2; ids < 0 give +inf."""
+    dev = vectors.device
+    _check("vectors", vectors, torch.float32, 2, dev)
+    _check("ids", ids, torch.int32, 2, dev)
+    _check("queries", queries, torch.float32, 2, dev)
+    n, d = vectors.shape
+    b, c = ids.shape
+    if queries.shape != (b, d):
+        raise ValueError(f"queries shape {tuple(queries.shape)} != {(b, d)}")
+    if not _on_card(dev):
+        return ref.gather_distance_ref(vectors, ids, queries)
+    out = torch.empty((b, c), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    rc = library("gather_distance").launch_gather_distance(
+        _ptr(vectors), _ptr(ids), _ptr(queries), _ptr(out), n, b, c, d,
+        _stream(dev))
+    _raise_on(rc, "gather_distance")
+    LAUNCHES["gather_distance"] += 1
+    return out
+
+
+def lsh_hash(queries: torch.Tensor, hyperplanes: torch.Tensor) -> torch.Tensor:
+    """(B, d) f32 queries, (L, d) f32 hyperplanes -> (B,) int32 codes."""
+    dev = queries.device
+    _check("queries", queries, torch.float32, 2, dev)
+    _check("hyperplanes", hyperplanes, torch.float32, 2, dev)
+    b, d = queries.shape
+    l = hyperplanes.shape[0]
+    if hyperplanes.shape[1] != d:
+        raise ValueError(f"hyperplanes have dim {hyperplanes.shape[1]}, "
+                         f"queries {d}")
+    if l > MAX_LSH_BITS:
+        raise ValueError(f"{l} hyperplanes > {MAX_LSH_BITS}: a 2^L bucket "
+                         f"table would not fit")
+    if not _on_card(dev):
+        return ref.lsh_hash_ref(queries, hyperplanes)
+    out = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out
+    rc = library("lsh_hash").launch_lsh_hash(
+        _ptr(queries), _ptr(hyperplanes), _ptr(out), b, l, d, _stream(dev))
+    _raise_on(rc, "lsh_hash")
+    LAUNCHES["lsh_hash"] += 1
+    return out
+
+
+def fused_hop_l2(vectors, cand_ids, queries, beam_ids, beam_dists, beam_exp):
+    """One fused L2 hop (gather + distance + beam merge) for a batch.
+
+    (N, d) f32 table, (B, C) int32 candidate ids, (B, d) f32 queries,
+    (B, L) int32/f32/bool beam -> (new_ids, new_dists, new_exp, n_fresh).
+    """
+    dev = vectors.device
+    _check("vectors", vectors, torch.float32, 2, dev)
+    _check("cand_ids", cand_ids, torch.int32, 2, dev)
+    _check("queries", queries, torch.float32, 2, dev)
+    _check("beam_ids", beam_ids, torch.int32, 2, dev)
+    _check("beam_dists", beam_dists, torch.float32, 2, dev)
+    _check("beam_exp", beam_exp, torch.bool, 2, dev)
+    n, d = vectors.shape
+    b, c = cand_ids.shape
+    l = beam_ids.shape[1]
+    if queries.shape != (b, d):
+        raise ValueError(f"queries shape {tuple(queries.shape)} != {(b, d)}")
+    if beam_ids.shape != (b, l) or beam_dists.shape != (b, l) \
+            or beam_exp.shape != (b, l):
+        raise ValueError("beam_ids/beam_dists/beam_exp must all be (B, L)")
+    if not _on_card(dev):
+        return ref.fused_hop_ref(vectors, cand_ids, queries, beam_ids,
+                                 beam_dists, beam_exp)
+    lib = library("fused_hop")
+    if lib.fused_hop_l2_smem_bytes(c, l) > MAX_SMEM_BYTES:
+        raise ValueError(f"C + L = {c + l} entries exceed the fused hop's "
+                         f"{MAX_SMEM_BYTES} bytes of shared memory")
+    out_ids = torch.empty((b, l), dtype=torch.int32, device=dev)
+    out_d = torch.empty((b, l), dtype=torch.float32, device=dev)
+    out_exp = torch.empty((b, l), dtype=torch.bool, device=dev)
+    out_nf = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b == 0 or l == 0:
+        return out_ids, out_d, out_exp, out_nf.zero_()
+    rc = lib.launch_fused_hop_l2(
+        _ptr(vectors), _ptr(cand_ids), _ptr(queries), _ptr(beam_ids),
+        _ptr(beam_dists), _ptr(beam_exp), _ptr(out_ids), _ptr(out_d),
+        _ptr(out_exp), _ptr(out_nf), n, b, c, l, d, _stream(dev))
+    _raise_on(rc, "fused_hop_l2")
+    LAUNCHES["fused_hop_l2"] += 1
+    return out_ids, out_d, out_exp, out_nf

@@ -13,6 +13,12 @@ import pytest
 from repro.core import VamanaParams, VectorSearchEngine, brute_force_knn
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (repro_torch kernels); skips "
+                   "where torch.cuda.is_available() is False")
+
+
 def make_clustered(n: int, d: int, n_clusters: int, seed: int,
                    spread: float = 1.0):
     rng = np.random.default_rng(seed)

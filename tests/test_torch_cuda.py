@@ -1,0 +1,161 @@
+"""repro_torch on the card: each CUDA kernel against its plain version,
+the two hop backends bit-identical, and no CUDA tensor reaching a plain
+version.  Every test here needs an NVIDIA GPU and skips without one.
+
+The module imports neither JAX nor the reference package, so it runs on
+a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
+
+Tolerances: distances rtol 1e-5 (the kernel's warp-strided sum and
+torch's reduction add the d squares in different orders); ids, expanded
+flags and fresh counts exactly equal where no two distances tie within
+that tolerance; LSH codes equal except where a projection sits within
+1e-5 * |q| * |h| of 0.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.cuda
+RTOL = 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _hop_inputs(rng, n, b, c, l, d):
+    """Realistic mid-traversal hop: beam dists are true distances, -1
+    holes, a duplicate, a beam id among the candidates, an all -1 lane."""
+    vec = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32))
+    q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32))
+    cand = rng.integers(-1, n, size=(b, c)).astype(np.int32)
+    bids = rng.integers(-1, n, size=(b, l)).astype(np.int32)
+    if c > 2:
+        cand[0, 0] = -1
+        cand[:, 2] = cand[:, 1]
+        cand[:, -1] = bids[:, 0]
+    cand[-1] = -1
+    cand, bids = torch.as_tensor(cand), torch.as_tensor(bids)
+    bd = ref.gather_distance_ref(vec, bids, q)
+    bd, order = torch.sort(bd, dim=1, stable=True)
+    bids = bids.gather(1, order)
+    bexp = (bids < 0) | torch.as_tensor(rng.random((b, l)) < 0.5)
+    return vec, cand, q, bids.contiguous(), bd.contiguous(), bexp
+
+
+def _close(got, want):
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    m = torch.isfinite(want)
+    torch.testing.assert_close(got[m], want[m], rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("n,b,c,l,d", [(500, 16, 32, 16, 64),
+                                       (4000, 128, 41, 16, 768),
+                                       (4000, 256, 64, 16, 768),
+                                       (300, 5, 1, 2, 24),
+                                       (300, 3, 200, 40, 33)])
+def test_kernels_match_plain(dev, n, b, c, l, d):
+    rng = np.random.default_rng(n + c + d)
+    cpu = _hop_inputs(rng, n, b, c, l, d)
+    gpu = [t.to(dev) for t in cpu]
+    start = dict(ops.LAUNCHES)
+    _close(ops.gather_distance(*gpu[:3]), ops.gather_distance(*cpu[:3]))
+    got = ops.fused_hop_l2(*gpu)
+    want = ops.fused_hop_l2(*cpu)
+    _close(got[1], want[1])
+    assert torch.equal(got[3].cpu(), want[3])
+    nxt = want[1][:, 1:]
+    tie_free = ((nxt - want[1][:, :-1] > 2 * RTOL * nxt.abs())
+                | ~torch.isfinite(nxt)).all(1)
+    for i in (0, 2):
+        assert torch.equal(got[i].cpu()[tie_free], want[i][tie_free])
+    h = torch.as_tensor(rng.normal(size=(8, d)).astype(np.float32))
+    codes = ops.lsh_hash(gpu[2], h.to(dev)).cpu()
+    proj = cpu[2].double() @ h.double().T
+    scale = cpu[2].norm(dim=1)[:, None].double() * h.norm(dim=1).double()
+    ok = ~(proj.abs() <= RTOL * scale).any(1)
+    assert torch.equal(codes[ok], ops.lsh_hash(cpu[2], h)[ok])
+    torch.cuda.synchronize()
+    assert {k: ops.LAUNCHES[k] - start[k] for k in start} == {
+        "gather_distance": 1, "lsh_hash": 1, "fused_hop_l2": 1}
+
+
+def test_cuda_tensors_never_reach_the_plain_versions(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+    rng = np.random.default_rng(0)
+    gpu = [t.to(dev) for t in _hop_inputs(rng, 100, 4, 8, 4, 16)]
+    for name in ("gather_distance_ref", "lsh_hash_ref", "fused_hop_ref",
+                 "_merge_ref"):
+        monkeypatch.setattr(ref, name, refuse)
+    ops.gather_distance(*gpu[:3])
+    ops.fused_hop_l2(*gpu)
+    ops.lsh_hash(gpu[2], gpu[0][:8].contiguous())
+    torch.cuda.synchronize()
+
+
+def test_oversized_fused_hop_raises(dev):
+    rng = np.random.default_rng(1)
+    gpu = [t.to(dev) for t in _hop_inputs(rng, 100, 2, 6000, 4, 16)]
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.fused_hop_l2(*gpu)
+
+
+def test_fused_and_unfused_search_bit_identical(dev):
+    from repro_torch.core.beam_search import SearchSpec, beam_search_l2
+    rng = np.random.default_rng(3)
+    n, d, b = 3000, 96, 64
+    vec = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                          device=dev)
+    adj = rng.integers(0, n, size=(n, 16)).astype(np.int32)
+    adj[rng.random((n, 16)) < 0.2] = -1
+    adj = torch.as_tensor(adj, device=dev)
+    q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                        device=dev)
+    starts = torch.full((b, 3), -1, dtype=torch.int32, device=dev)
+    starts[:, 1:] = torch.as_tensor(rng.integers(0, n, size=(b, 2)),
+                                    dtype=torch.int32, device=dev)
+    res = [beam_search_l2(adj, vec, q, starts,
+                          SearchSpec(16, 10, 64, record_scored=True,
+                                     hop_backend=hb))
+           for hb in ("unfused", "fused")]
+    for fld in ["ids", "dists", "hops", "ndists", "trace", "scored",
+                "converged"]:
+        assert torch.equal(getattr(res[0], fld), getattr(res[1], fld)), fld
+
+
+def test_database_on_the_card_matches_the_cpu(dev):
+    """The facade on the card and on the CPU over one graph: recall@10
+    within 1 point and catapults used on the replay."""
+    from repro_torch import db
+    from repro_torch.core.engine import brute_force_knn, recall_at_k
+    from repro_torch.core.vamana import (VamanaParams, build_vamana)
+    rng = np.random.default_rng(7)
+    centers = rng.normal(size=(8, 16)).astype(np.float32) * 4
+    vec = (centers[rng.integers(0, 8, 1200)]
+           + rng.normal(size=(1200, 16))).astype(np.float32)
+    graph = build_vamana(vec, VamanaParams(max_degree=16, build_beam=32),
+                         device=dev)
+    qs = (centers[rng.integers(0, 8, 64)]
+          + 0.5 * rng.normal(size=(64, 16))).astype(np.float32)
+    truth = brute_force_knn(vec, qs, 10)
+    spec = db.IndexSpec(degree=16, build_beam=32)
+    recalls = {}
+    for where in ("cuda", "cpu"):
+        d = db.create(spec, vec, prebuilt=graph, device=where)
+        d.search(qs, k=10)
+        ids, _, stats = d.search(qs, k=10)
+        recalls[where] = recall_at_k(ids, truth)
+        assert stats.used.all()
+    assert abs(recalls["cuda"] - recalls["cpu"]) <= 0.01, recalls

@@ -1,0 +1,223 @@
+"""The whole slice: ``repro_torch.db.create`` + ``search`` against
+``repro.db.create`` + ``search`` on the CPU, plus the facade's contracts.
+
+The port gets the reference's graph (``prebuilt=``) and its LSH planes
+and bucket tables (``repro_torch.convert``), then both replay the same
+batches.  ids, hops, ndists, used, won and the bucket tables must be
+exactly equal after every batch; distances agree to rtol 1e-6.
+"""
+from __future__ import annotations
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro import db as jdb
+from repro.core import buckets as jbk
+from repro_torch import convert
+from repro_torch import db as tdb
+from repro_torch.core import buckets as tbk
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SPEC = dict(degree=16, build_beam=32, n_bits=4, bucket_capacity=8)
+
+
+@pytest.fixture
+def graph(diskann_engine):
+    """The reference's Vamana graph of the SMALL corpus (the conftest
+    build uses SPEC's geometry), shared by both packages."""
+    return diskann_engine._adj_np, diskann_engine.medoid
+
+
+def _twins(corpus, graph, mode, hop_backend="unfused"):
+    ref = jdb.create(jdb.IndexSpec(mode=mode, hop_backend=hop_backend, **SPEC),
+                     corpus[0], prebuilt=graph)
+    port = tdb.create(tdb.IndexSpec(mode=mode, hop_backend=hop_backend,
+                                    **SPEC), corpus[0], prebuilt=graph,
+                      device="cpu")
+    if mode == "catapult":
+        cat = ref.backend._cat
+        port.backend._cat = convert.catapult_state_from_numpy(
+            np.asarray(cat.lsh.hyperplanes), jbk.to_arrays(cat.buckets),
+            device="cpu")
+    return ref, port
+
+
+@pytest.mark.parametrize("mode,hop_backend", [("catapult", "unfused"),
+                                              ("catapult", "fused"),
+                                              ("diskann", "unfused")])
+def test_facade_matches_jax(corpus, queries, graph, mode, hop_backend):
+    ref, port = _twins(corpus, graph, mode, hop_backend)
+    batches = [queries[i: i + 32] for i in (0, 32, 64)]
+    for rnd in range(2):
+        for q in batches:
+            r = ref.search(q, k=10)
+            p = port.search(q, k=10)
+            np.testing.assert_array_equal(p.ids, r.ids)
+            np.testing.assert_allclose(p.dists, r.dists, rtol=1e-6)
+            for fld in ("hops", "ndists", "used", "won"):
+                np.testing.assert_array_equal(getattr(p.stats, fld),
+                                              getattr(r.stats, fld),
+                                              err_msg=f"{fld} round {rnd}")
+            if mode == "catapult":
+                want = jbk.to_arrays(ref.backend._cat.buckets)
+                got = tbk.to_arrays(port.backend._cat.buckets)
+                for name in want:
+                    np.testing.assert_array_equal(got[name], want[name])
+    if mode == "catapult":
+        assert p.stats.used.all() and p.stats.won.any()
+    assert p.ids.dtype == np.int32 and p.dists.dtype == np.float32
+
+
+def test_publish_false_leaves_buckets_alone(corpus, queries, graph):
+    ref, port = _twins(corpus, graph, "catapult")
+    before = tbk.to_arrays(port.backend._cat.buckets)
+    p = port.search(queries[:16], k=5, publish=False)
+    r = ref.search(queries[:16], k=5, publish=False)
+    np.testing.assert_array_equal(p.ids, r.ids)
+    after = tbk.to_arrays(port.backend._cat.buckets)
+    for name in before:
+        np.testing.assert_array_equal(after[name], before[name])
+
+
+def test_create_defaults_to_the_card():
+    """create() without a device asks for the card: where there is none it
+    must raise, never continue on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    vec = np.random.default_rng(0).normal(size=(50, 8)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tdb.create(tdb.IndexSpec(degree=4, build_beam=8), vec)
+
+
+@pytest.mark.parametrize("mode,hop_backend", [("catapult", "unfused"),
+                                              ("catapult", "fused"),
+                                              ("diskann", "unfused")])
+def test_chip_smoke_launch_accounting(corpus, queries, graph, monkeypatch,
+                                      mode, hop_backend):
+    """``chip_smoke.expected_launches`` (what the card run holds each
+    path's kernel counts to) against the wrapper calls a search makes."""
+    import importlib.util
+    from repro_torch.kernels import ops
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    calls = dict.fromkeys(ops.LAUNCHES, 0)
+    for name in calls:
+        def wrapped(*args, _name=name, _fn=getattr(ops, name)):
+            calls[_name] += 1
+            return _fn(*args)
+        monkeypatch.setattr(ops, name, wrapped)
+    port = tdb.create(tdb.IndexSpec(mode=mode, hop_backend=hop_backend,
+                                    **SPEC), corpus[0], prebuilt=graph,
+                      device="cpu")
+    iters = []
+    for lo in (0, 24, 48):
+        r = port.search(queries[lo: lo + 24], k=10)
+        iters.append(int(r.stats.hops.max()))
+    assert calls == smoke.expected_launches(mode, hop_backend, iters)
+
+
+@pytest.mark.parametrize("build", [
+    "build_vamana", "make_catapult_state", "make_lsh", "make_buckets",
+    "from_arrays", "catapult_state_from_numpy", "engine"])
+def test_public_constructors_default_to_the_card(build):
+    """Every public constructor of device state asks for the card when
+    the caller names no device, and raises where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.core import catapult as tcat
+    from repro_torch.core import engine as teng
+    from repro_torch.core import lsh as tlsh
+    from repro_torch.core import vamana as tvam
+    vec = np.random.default_rng(0).normal(size=(50, 8)).astype(np.float32)
+    arrays = tbk.to_arrays(tbk.make_buckets(4, 2, device="cpu"))
+    gen = torch.Generator().manual_seed(0)
+    calls = {
+        "build_vamana": lambda: tvam.build_vamana(
+            vec, tvam.VamanaParams(max_degree=4, build_beam=8)),
+        "make_catapult_state": lambda: tcat.make_catapult_state(gen, 8),
+        "make_lsh": lambda: tlsh.make_lsh(gen, 4, 8),
+        "make_buckets": lambda: tbk.make_buckets(4, 2),
+        "from_arrays": lambda: tbk.from_arrays(arrays),
+        "catapult_state_from_numpy": lambda: convert.catapult_state_from_numpy(
+            vec[:4], arrays),
+        "engine": lambda: teng.VectorSearchEngine(),
+    }
+    with pytest.raises(RuntimeError, match="cuda"):
+        calls[build]()
+
+
+@pytest.mark.parametrize("field,value", [
+    ("tier", "disk"), ("pq", 4), ("filters", True), ("mode", "lsh_apg"),
+    ("adapt", object()), ("io", object()), ("ingest", object()),
+    ("tiered", object())])
+def test_unported_spec_fields_raise_capability_error(field, value):
+    kw = {field: value}
+    if field == "tier":
+        kw["path"] = "unused.ctpl"
+    with pytest.raises(tdb.CapabilityError, match="ROADMAP"):
+        tdb.IndexSpec(**kw)
+
+
+def test_spec_validation_matches_reference():
+    for kw in (dict(tier="bogus"), dict(mode="bogus"),
+               dict(hop_backend="bogus"), dict(n_shards=0)):
+        with pytest.raises(ValueError):
+            jdb.IndexSpec(**kw)
+        with pytest.raises(ValueError):
+            tdb.IndexSpec(**kw)
+    assert tdb.IndexSpec().vamana().max_degree == jdb.IndexSpec().vamana(
+        ).max_degree
+
+
+def test_explain_metrics_and_request_spelling(corpus, queries, graph):
+    port = tdb.create(tdb.IndexSpec(**SPEC), corpus[0], prebuilt=graph,
+                      device="cpu")
+    port.search(queries[:8], k=5)
+    tr = port.search(queries[:8], k=5, explain=True)
+    assert tr.catapult_used == int(tr.stats.used.sum()) == 8
+    assert set(tr.entry) == {"catapult"}
+    assert tr.stage_ms("route") > 0 and tr.to_dict()["tier"] == "ram"
+    res = port.search(tdb.SearchRequest(queries=queries[:8], k=5,
+                                        publish=False))
+    np.testing.assert_array_equal(res.ids, tr.ids)
+    with pytest.raises(TypeError):
+        port.search(tdb.SearchRequest(queries=queries[:8]), k=5)
+    m = port.metrics()
+    assert m["catapultdb_search_requests_total"] == 3
+    assert m["catapultdb_search_explain_total"] == 1
+    assert "catapultdb_search_latency_ms" in port.metrics("prometheus")
+    assert port.n_active == corpus[0].shape[0] and port.dim == 16
+    assert port.warm((4,)) >= 0
+
+
+@pytest.mark.parametrize("op", ["upsert", "delete", "consolidate", "save",
+                                "serve", "io_stats"])
+def test_unported_database_methods_raise(corpus, graph, op):
+    port = tdb.create(tdb.IndexSpec(mode="diskann", **SPEC), corpus[0],
+                      prebuilt=graph, device="cpu")
+    args = {"upsert": (corpus[0][:2],), "delete": (np.array([1]),)}.get(op, ())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        getattr(port, op)(*args)
+
+
+def test_port_imports_neither_jax_nor_the_reference():
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (path, name)
