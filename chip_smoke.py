@@ -3,28 +3,37 @@
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
 
-Builds the port's CUDA kernels from the sources in this checkout, then:
+Builds the port's six CUDA kernels from the sources in this checkout,
+then:
 
-1. kernels at deployment shapes (N=1,000,000 x d=768 table, B=4096 lanes,
-   C=64 candidates, L=16 beam, and the catapult init hop's C=41): each
-   kernel against its plain PyTorch version on the same inputs, timed
-   with CUDA events beside its plain version and its bound;
+1. kernels at deployment shapes, each against its plain PyTorch version
+   on the same inputs, timed with CUDA events beside its plain version
+   and its bound: ``gather_distance``, ``fused_hop_l2`` and ``lsh_hash``
+   over an N=1,000,000 x d=768 table (B=4096 lanes, C=64 candidates,
+   L=16 beam, and the catapult init hop's C=41); ``pq_adc`` and
+   ``fused_hop_pq`` over a (1,000,000, 8) int32 code table with
+   (4096, 8, 256) LUTs, the fused PQ hop also bit for bit against the
+   composed one; ``l2_distance`` at 4096 x 4096 x 768 and 1000 x 777,
+   beside ``torch.cdist``;
 2. the main path: ``create(IndexSpec(), corpus)`` on the tripclick
    workload (20,000 x 24, 4,096 queries) — Vamana build plus catapult
    search on the card — replayed twice in batches of 256, beside a
    ``mode="diskann"`` twin, a ``hop_backend="fused"`` twin and a CPU twin
-   over the same graph, with recall against brute force;
+   over the same graph, with recall against brute force; then the same
+   four twins with PQ traversal and full-precision rerank
+   (``IndexSpec(pq=8)``) over that graph;
 3. deployment width: 1,000,000 x 768 vectors, degree 64, over a random
-   regular graph, 4 batches of 4,096 queries under both hop backends.
+   regular graph, 4 batches of 4,096 queries under both hop backends, at
+   full precision and with PQ (M=8, K=256; training, encoding and LUT
+   times recorded).
 
 Kernel launch counts are set to 0 just before each path (the Vamana
-build, the catapult, diskann and fused replays, and each deployment-width
-backend) and read just after it; each path must show exactly the launches
-its batches imply (``expected_launches``).  Any failed check exits
-non-zero.  Prints the card's name and power
-limit first, a ``{"kernels": [...]}`` line, and as the last line
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
-reference package.
+build, each twin's replay, and each deployment-width twin) and read just
+after it; each path must show exactly the launches its batches imply
+(``expected_launches``).  Any failed check exits non-zero.  Prints the
+card's name and power limit first, a ``{"kernels": [...]}`` line, and as
+the last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
+or of the reference package.
 """
 from __future__ import annotations
 
@@ -42,8 +51,12 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
 RTOL = 1e-5                    # 768-term sums added in different orders
+RTOL_PQ = 1e-6                 # eight-term ADC sums in different orders
+TOL_L2 = 1e-4                  # expanded against direct form (rtol, atol)
 N, D, B, C, L = 1_000_000, 768, 4096, 64, 16
 C_INIT = 41                    # bucket_capacity + 1 catapult starts
+PQ_M, PQ_K = 8, 256            # default_pq_subspaces(768), 8-bit codes
+SPIN_CYCLES = 2 ** 25          # ~17 ms at 1.98 GHz, before each timed run
 
 
 class SmokeFailure(RuntimeError):
@@ -56,18 +69,34 @@ def check(cond, msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    """Mean device time of one call of ``fn`` over ``reps`` back-to-back
+    calls (CUDA events).
+
+    The card first spins (``torch.cuda._sleep``) while the host enqueues
+    every call, so the events time the device's work and not the host's
+    launch rate: a wrapper's checks and ctypes call take tens of µs, as
+    long as the smallest kernels run.  The spin doubles until it outlasts
+    the enqueue; a ``fn`` that waits on the card never lets it, and is
+    timed with its host time after four doublings."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    spin = SPIN_CYCLES
+    for _ in range(5):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(spin)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        ev[2].record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < ev[0].elapsed_time(ev[1]):
+            break
+        spin *= 2
+    return ev[1].elapsed_time(ev[2]) / reps
 
 
 def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
@@ -76,14 +105,10 @@ def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def hop_inputs(gen, vectors, b, c, l, dev):
-    """A mid-traversal hop at full width: true beam distances, -1 holes,
-    duplicate candidates, a beam id among the candidates, one all -1 lane
-    and an interior -1 before valid ids."""
-    from repro_torch.kernels import ref
-    n = vectors.shape[0]
-    q = vectors[torch.randint(0, n, (b,), generator=gen, device=dev)] \
-        + 0.1 * torch.randn((b, vectors.shape[1]), generator=gen, device=dev)
+def hop_ids(gen, n, b, c, l, dev):
+    """Candidate and beam ids of a mid-traversal hop: -1 holes, duplicate
+    candidates, a beam id among the candidates, one all -1 lane and an
+    interior -1 before valid ids."""
     cand = torch.randint(0, n, (b, c), generator=gen, device=dev,
                          dtype=torch.int32)
     cand[torch.rand((b, c), generator=gen, device=dev) < 0.1] = -1
@@ -94,11 +119,38 @@ def hop_inputs(gen, vectors, b, c, l, dev):
     cand[:, -1] = bids[:, 0]
     cand[0, 0] = -1
     cand[-1] = -1
-    bd, order = torch.sort(ref.gather_distance_ref(vectors, bids, q), dim=1,
-                           stable=True)
+    return cand, bids
+
+
+def sorted_beam(gen, bids, bd, dev):
+    """The beam in ascending distance order, about half of it expanded."""
+    bd, order = torch.sort(bd, dim=1, stable=True)
     bids = bids.gather(1, order).contiguous()
-    bexp = (bids < 0) | (torch.rand((b, l), generator=gen, device=dev) < 0.5)
-    return q.contiguous(), cand, bids, bd.contiguous(), bexp
+    bexp = (bids < 0) | (torch.rand(bids.shape, generator=gen, device=dev)
+                         < 0.5)
+    return bids, bd.contiguous(), bexp
+
+
+def hop_inputs(gen, vectors, b, c, l, dev):
+    """A mid-traversal L2 hop at full width with true beam distances."""
+    from repro_torch.kernels import ref
+    n = vectors.shape[0]
+    q = vectors[torch.randint(0, n, (b,), generator=gen, device=dev)] \
+        + 0.1 * torch.randn((b, vectors.shape[1]), generator=gen, device=dev)
+    cand, bids = hop_ids(gen, n, b, c, l, dev)
+    bids, bd, bexp = sorted_beam(
+        gen, bids, ref.gather_distance_ref(vectors, bids, q), dev)
+    return q.contiguous(), cand, bids, bd, bexp
+
+
+def pq_hop_inputs(gen, luts, codes, c, l, dev):
+    """A mid-traversal PQ hop: the same id structure, true ADC beam
+    distances."""
+    from repro_torch.kernels import ref
+    cand, bids = hop_ids(gen, codes.shape[0], luts.shape[0], c, l, dev)
+    bd = torch.where(bids < 0, torch.inf, ref.pq_adc_ref(
+        luts, codes[bids.clamp(min=0).long()]))
+    return (cand, *sorted_beam(gen, bids, bd, dev))
 
 
 def unique_rows(ids) -> int:
@@ -106,14 +158,40 @@ def unique_rows(ids) -> int:
     return int(torch.unique(ids[ids >= 0]).numel())
 
 
-def dist_agreement(got, want, name):
+def lut_entries(luts, rows, valid) -> int:
+    """Distinct LUT entries (lane, m, code) that the valid candidates'
+    (B, C, M) code rows touch (each read once)."""
+    b, m, k = luts.shape
+    lane = torch.arange(b, device=rows.device)[:, None, None]
+    sub = torch.arange(m, device=rows.device)[None, None, :]
+    key = (lane * m + sub) * k + rows.long()
+    return int(torch.unique(key[valid]).numel())
+
+
+def dist_agreement(got, want, name, rtol=RTOL):
     check(torch.equal(torch.isfinite(got), torch.isfinite(want)),
           f"{name}: +inf positions differ from the plain version")
     m = torch.isfinite(want)
     err = (got[m] - want[m]).abs()
-    check(bool((err <= RTOL * want[m].abs()).all()),
-          f"{name}: distances differ beyond rtol {RTOL}")
+    check(bool((err <= rtol * want[m].abs()).all()),
+          f"{name}: distances differ beyond rtol {rtol}")
     return float(err.max()) if err.numel() else 0.0
+
+
+def tie_free_lanes(hop_ref, inputs, rtol):
+    """Lanes whose first L+1 merged entries (an extra empty beam slot
+    shows the first entry dropped) hold no two distances within 2*rtol:
+    there ids and flags must equal the plain version's."""
+    *head, bids, bd, bexp = inputs
+
+    def pad(t, v):
+        return torch.cat([t, torch.full((t.shape[0], 1), v, dtype=t.dtype,
+                                        device=t.device)], 1)
+    ext = hop_ref(*head, pad(bids, -1), pad(bd, float("inf")),
+                  pad(bexp, True))[1]
+    nxt = ext[:, 1:]
+    return ((nxt - ext[:, :-1] > 2 * rtol * nxt.abs())
+            | ~torch.isfinite(nxt)).all(1)
 
 
 def phase_kernels(vectors, gen, dev) -> dict:
@@ -154,17 +232,8 @@ def phase_kernels(vectors, gen, dev) -> dict:
         errs.append(dist_agreement(got[1], want[1], f"fused_hop_l2 C={c}"))
         check(torch.equal(got[3], want[3]),
               f"fused_hop_l2 C={c}: n_fresh differs from the plain version")
-        # ids and flags must equal the plain version's on every lane whose
-        # first L+1 merged entries (an extra empty beam slot shows the
-        # first entry dropped) hold no two distances within 2*RTOL
-        def pad(t, v):
-            return torch.cat([t, torch.full((B, 1), v, dtype=t.dtype,
-                                            device=dev)], 1)
-        ext = ref.fused_hop_ref(vectors, hc, hq, pad(hb, -1),
-                                pad(hd, float("inf")), pad(he, True))[1]
-        nxt = ext[:, 1:]
-        tie_free = ((nxt - ext[:, :-1] > 2 * RTOL * nxt.abs())
-                    | ~torch.isfinite(nxt)).all(1)
+        tie_free = tie_free_lanes(ref.fused_hop_ref,
+                                  (vectors, hc, hq, hb, hd, he), RTOL)
         lanes = ((got[0] != want[0]) | (got[2] != want[2])).any(1)
         mismatched[c] = int(lanes.sum())
         n_bad = int((lanes & tie_free).sum())
@@ -218,6 +287,115 @@ def phase_kernels(vectors, gen, dev) -> dict:
     for name, r in out.items():
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    return out
+
+
+def phase_pq_kernels(gen, dev) -> dict:
+    """pq_adc and fused_hop_pq against their plain versions at deployment
+    shapes: a (1,000,000, 8) int32 code table, (4096, 8, 256) LUTs."""
+    from repro_torch.kernels import ops, ref
+    codes = torch.randint(0, PQ_K, (N, PQ_M), generator=gen, device=dev,
+                          dtype=torch.int32)
+    luts = torch.rand((B, PQ_M, PQ_K), generator=gen, device=dev)
+    out, errs, mismatched = {}, [], {}
+    hop_inputs_by_c = {c: pq_hop_inputs(gen, luts, codes, c, L, dev)
+                       for c in (C, C_INIT)}
+    for c, (cand, bids, bd, bexp) in hop_inputs_by_c.items():
+        got = ops.fused_hop_pq(luts, codes, cand, bids, bd, bexp)
+        # bit for bit the composed PQ hop: the plain merge over the
+        # pq_adc kernel's sums (both kernels add through row_adc)
+        adc = ops.pq_adc(luts, codes[cand.clamp(min=0).long()])
+        composed = ref._merge_ref(cand, torch.where(cand < 0, torch.inf, adc),
+                                  bids, bd, bexp)
+        for g, w, what in zip(got, composed, ("ids", "dists", "exp",
+                                              "n_fresh")):
+            check(torch.equal(g, w), f"fused_hop_pq C={c}: {what} differ "
+                                     f"from the composed PQ hop's")
+        want = ref.fused_hop_pq_ref(luts, codes, cand, bids, bd, bexp)
+        errs.append(dist_agreement(got[1], want[1], f"fused_hop_pq C={c}",
+                                   RTOL_PQ))
+        check(torch.equal(got[3], want[3]),
+              f"fused_hop_pq C={c}: n_fresh differs from the plain version")
+        tie_free = tie_free_lanes(ref.fused_hop_pq_ref,
+                                  (luts, codes, cand, bids, bd, bexp),
+                                  RTOL_PQ)
+        lanes = ((got[0] != want[0]) | (got[2] != want[2])).any(1)
+        mismatched[c] = int(lanes.sum())
+        n_bad = int((lanes & tie_free).sum())
+        print(f"fused_hop_pq C={c}: ids/exp differ from the plain version on "
+              f"{mismatched[c]} of {B} lanes, {n_bad} of them among the "
+              f"{int(tie_free.sum())} tie-free lanes; max |err| "
+              f"{errs[-1]:.3g}")
+        check(n_bad == 0, f"fused_hop_pq C={c}: ids/exp differ from the "
+                          f"plain version on {n_bad} tie-free lanes")
+
+    cand, bids, bd, bexp = hop_inputs_by_c[C]
+    valid = cand >= 0
+    rows = codes[cand.clamp(min=0).long()].contiguous()        # (B, C, M)
+    got = ops.pq_adc(luts, rows)
+    want = ref.pq_adc_ref(luts, rows)
+    err = dist_agreement(got, want, "pq_adc", RTOL_PQ)
+    everything = torch.ones_like(valid)
+    b_ms, b_by = bound(rows.numel() * 4
+                       + lut_entries(luts, rows, everything) * 4
+                       + got.numel() * 4, float(rows.numel()))
+    out["pq_adc"] = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(lambda: ops.pq_adc(luts, rows)),
+        plain_ms=cuda_ms(lambda: ref.pq_adc_ref(luts, rows), reps=5),
+        shape=f"B={B} C={C} M={PQ_M} K={PQ_K} (codes gathered to (B, C, M))",
+        tolerance=f"rtol {RTOL_PQ}",
+        library_note="no single PyTorch call computes a batched LUT "
+                     "gather-sum")
+    n_valid = int(valid.sum())
+    hop_bytes = (unique_rows(cand) * PQ_M * 4 + cand.numel() * 4
+                 + lut_entries(luts, rows, valid) * 4
+                 + 2 * B * L * (4 + 4 + 1) + B * 4)
+    b_ms, b_by = bound(hop_bytes, float(n_valid * PQ_M))
+    out["fused_hop_pq"] = dict(
+        max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(lambda: ops.fused_hop_pq(luts, codes, cand, bids, bd,
+                                            bexp)),
+        plain_ms=cuda_ms(lambda: ref.fused_hop_pq_ref(luts, codes, cand, bids,
+                                                      bd, bexp), reps=5),
+        mismatched_lanes=mismatched,
+        shape=f"N={N} M={PQ_M} K={PQ_K} B={B} C={C} L={L} "
+              f"(and C={C_INIT} checked)",
+        tolerance=f"rtol {RTOL_PQ}; ids/exp equal except near-ties; equal "
+                  f"to the composed PQ hop bit for bit",
+        library_note="no single PyTorch call computes a fused hop")
+    for name in ("pq_adc", "fused_hop_pq"):
+        r = out[name]
+        print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    return out
+
+
+def phase_l2_distance(vectors, dev) -> dict:
+    """l2_distance against its plain version at B = C = 4096, d = 768 and
+    at a ragged 1000 x 777; library yardstick: torch.cdist squared."""
+    from repro_torch.kernels import ops, ref
+    errs = []
+    for b, c in ((B, B), (1000, 777)):
+        q, x = vectors[:b], vectors[b: b + c]
+        got, want = ops.l2_distance(q, x), ref.l2_distance_ref(q, x)
+        err = (got - want).abs()
+        check(bool((err <= TOL_L2 + TOL_L2 * want.abs()).all()),
+              f"l2_distance {b}x{c}: beyond rtol/atol {TOL_L2}")
+        errs.append(float(err.max()))
+    q, x = vectors[:B], vectors[B: 2 * B]
+    b_ms, b_by = bound((2 * B * D + B * B) * 4, 2.0 * B * B * D)
+    out = dict(
+        max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+        ms=cuda_ms(lambda: ops.l2_distance(q, x)),
+        plain_ms=cuda_ms(lambda: ref.l2_distance_ref(q, x), reps=5),
+        library_ms=cuda_ms(lambda: torch.cdist(q, x).square()),
+        shape=f"B={B} C={B} d={D} (and 1000x777 checked)",
+        tolerance=f"rtol and atol {TOL_L2} (expanded against direct form)",
+        library_note="torch.cdist(q, x).square() with TF32 off")
+    print(f"l2_distance: {out['ms']:.4f} ms (plain {out['plain_ms']:.4f} ms, "
+          f"cdist {out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+          f"by {b_by}); max |err| {out['max_abs_err']:.3g}")
     return out
 
 
@@ -278,21 +456,30 @@ def counted(fn):
     return out, dict(ops.LAUNCHES)
 
 
-def expected_launches(mode: str, hop_backend: str, loop_iters) -> dict:
+def expected_launches(mode: str, hop_backend: str, loop_iters,
+                      pq: bool = False) -> dict:
     """Kernel launches of a run of search batches whose beam searches
     took ``loop_iters`` loop iterations each (a batch's iterations are the
-    largest ``hops`` of its lanes).  Per batch: catapult mode hashes once
-    and scores the catapult starts and the fallback (two gather-distance
-    launches); the init merge and every iteration are one gather-distance
-    launch unfused, one fused-hop launch fused."""
+    largest ``hops`` of its lanes).  The composed hop's distance kernel
+    is ``gather_distance`` at full precision and ``pq_adc`` with PQ; the
+    fused hop is ``fused_hop_l2`` or ``fused_hop_pq``.  Per batch:
+    catapult mode hashes once and scores the catapult starts and the
+    fallback (two composed-distance launches); the init merge and every
+    iteration are one composed-distance launch unfused, one fused-hop
+    launch fused; PQ reranks the final beam with one ``gather_distance``
+    launch.  ``l2_distance`` is on no path."""
     nb, it = len(loop_iters), int(sum(loop_iters))
-    lsh = nb if mode == "catapult" else 0
-    won = 2 * nb if mode == "catapult" else 0
-    if hop_backend == "fused":
-        return {"gather_distance": won, "lsh_hash": lsh,
-                "fused_hop_l2": nb + it}
-    return {"gather_distance": nb + it + won, "lsh_hash": lsh,
-            "fused_hop_l2": 0}
+    composed = "pq_adc" if pq else "gather_distance"
+    fused = "fused_hop_pq" if pq else "fused_hop_l2"
+    out = dict.fromkeys(("gather_distance", "lsh_hash", "fused_hop_l2",
+                         "fused_hop_pq", "pq_adc", "l2_distance"), 0)
+    if mode == "catapult":
+        out["lsh_hash"] = nb
+        out[composed] += 2 * nb
+    out[fused if hop_backend == "fused" else composed] += nb + it
+    if pq:
+        out["gather_distance"] += nb
+    return out
 
 
 def replay(database, queries, batch=256, passes=2):
@@ -314,49 +501,55 @@ def replay(database, queries, batch=256, passes=2):
     return res
 
 
-def phase_main_path(seed: int, dev) -> dict:
+def pq_stages(database, queries, dev, **kw) -> dict:
+    """Where a PQ batch's time goes: LUT build (CUDA events), and the
+    route (LUT, ADC hops, publish) and rerank stages of an explained
+    ``publish=False`` search (host clock, each synced)."""
+    from repro_torch.core import pq
+    eng = database.backend
+    qd = torch.as_tensor(queries, device=dev)
+    database.search(queries, publish=False, explain=True, **kw)
+    tr = database.search(queries, publish=False, explain=True, **kw)
+    return dict(lut_ms=cuda_ms(lambda: pq.query_luts(eng._pq, qd), reps=10),
+                route_ms=tr.stage_ms("route"),
+                rerank_ms=tr.stage_ms("rerank"), total_ms=tr.total_ms)
+
+
+def replay_twins(wl, truth, graph, dev, pq=None, built=None) -> dict:
+    """Replay the workload twice through the catapult, diskann and fused
+    twins over one graph (``built`` serves as the catapult twin) and a
+    CPU twin of the catapult one, each path's launches counted; the
+    gates every traversal must pass, at full precision or with PQ."""
     from repro_torch import db
     from repro_torch.core.engine import recall_at_k
-    from repro_torch.data import make_tripclick
-
-    wl = make_tripclick(seed=seed)
-    truth = brute_force_knn_cuda(wl.corpus, wl.queries, 10, dev)
-    paths = {}
-
-    def build():
-        t0 = time.perf_counter()
-        return db.create(db.IndexSpec(), wl.corpus), time.perf_counter() - t0
-
-    (cat, build_s), paths["build"] = counted(build)
-    check(paths["build"]["gather_distance"] > 0
-          and paths["build"]["lsh_hash"] == 0
-          and paths["build"]["fused_hop_l2"] == 0,
-          f"the Vamana build's searches did not run on the gather-distance "
-          f"kernel alone: {paths['build']}")
-    graph = (cat.backend._adj_np.copy(), cat.backend.medoid)
-    twins, runs = {}, {}
+    prefix = "pq_" if pq else ""
+    twins, runs, paths = {}, {}, {}
     for name, mode, hb in (("catapult", "catapult", "unfused"),
                            ("diskann", "diskann", "unfused"),
                            ("fused", "catapult", "fused")):
-        def drive(mode=mode, hb=hb):
-            d = cat if mode == "catapult" and hb == "unfused" else db.create(
-                db.IndexSpec(mode=mode, hop_backend=hb), wl.corpus,
-                prebuilt=graph)
+        def drive(name=name, mode=mode, hb=hb):
+            d = built if built is not None and name == "catapult" else \
+                db.create(db.IndexSpec(mode=mode, hop_backend=hb, pq=pq),
+                          wl.corpus, prebuilt=graph)
             return d, replay(d, wl.queries)
 
-        (twins[name], runs[name]), paths[name] = counted(drive)
+        (twins[name], runs[name]), paths[prefix + name] = counted(drive)
         want = expected_launches(
-            mode, hb, [i for p in runs[name] for i in p["loop_iters"]])
-        check(paths[name] == want, f"{name} replay launched {paths[name]}, "
-                                   f"its batches imply {want}")
+            mode, hb, [i for p in runs[name] for i in p["loop_iters"]],
+            pq=bool(pq))
+        check(paths[prefix + name] == want,
+              f"{prefix}{name} replay launched {paths[prefix + name]}, its "
+              f"batches imply {want}")
     profiled = {name: idle_share(d, wl.queries[-256:], k=10)
                 for name, d in twins.items()}
-    cpu_twin = db.create(db.IndexSpec(), wl.corpus, prebuilt=graph,
+    cpu_twin = db.create(db.IndexSpec(pq=pq), wl.corpus, prebuilt=graph,
                          device="cpu")
     runs["cpu"] = replay(cpu_twin, wl.queries)
 
-    out = {"build_s": build_s, "launches": paths,
-           "one_batch_256": profiled}
+    out = {"launches": paths, "one_batch_256": profiled}
+    if pq:
+        out["stages_batch_256"] = pq_stages(twins["catapult"],
+                                            wl.queries[-256:], dev, k=10)
     for name, passes in runs.items():
         for i, p in enumerate(passes):
             out[f"{name}_pass{i + 1}"] = dict(
@@ -366,29 +559,62 @@ def phase_main_path(seed: int, dev) -> dict:
                 batch_ms_mean=float(np.mean(p["batch_ms"])),
                 batch_ms_p50=float(np.median(p["batch_ms"])))
     for k, v in out.items():
-        print(f"main path {k}: {v}")
+        print(f"main path {prefix}{k}: {v}")
+    what = "PQ " if pq else ""
     c1, c2 = out["catapult_pass1"], out["catapult_pass2"]
     dk = out["diskann_pass2"]
     check(c2["mean_hops"] < c1["mean_hops"],
-          "catapult hops did not fall on the second pass")
+          f"{what}catapult hops did not fall on the second pass")
     check(c2["mean_hops"] < dk["mean_hops"],
-          "catapult hops are not below diskann's")
-    check(c2["used"] >= 0.9, f"catapult used {c2['used']} < 0.9")
+          f"{what}catapult hops are not below diskann's")
+    check(c2["used"] >= 0.9, f"{what}catapult used {c2['used']} < 0.9")
     check(c2["recall_at_10"] >= dk["recall_at_10"] - 0.01,
-          "catapult recall fell more than 1 point below diskann's")
+          f"{what}catapult recall fell more than 1 point below diskann's")
     for i in (1, 2):
         check(abs(out[f"cpu_pass{i}"]["recall_at_10"]
                   - out[f"catapult_pass{i}"]["recall_at_10"]) <= 0.01,
-              "the CPU twin's recall is not within 1 point of the card's")
+              f"the {what}CPU twin's recall is not within 1 point of the "
+              f"card's")
         check(np.array_equal(runs["fused"][i - 1]["ids"],
                              runs["catapult"][i - 1]["ids"]),
-              "hop_backend='fused' ids differ from 'unfused'")
+              f"{what}hop_backend='fused' ids differ from 'unfused'")
+    return out
+
+
+def phase_main_path(seed: int, dev) -> dict:
+    """The tripclick workload: the Vamana build, then the full-precision
+    twins and the PQ twins (``IndexSpec(pq=8)``, d=24 so ds=3) over the
+    built graph."""
+    from repro_torch import db
+    from repro_torch.data import make_tripclick
+
+    wl = make_tripclick(seed=seed)
+    truth = brute_force_knn_cuda(wl.corpus, wl.queries, 10, dev)
+
+    def build():
+        t0 = time.perf_counter()
+        return db.create(db.IndexSpec(), wl.corpus), time.perf_counter() - t0
+
+    (cat, build_s), built = counted(build)
+    check(built["gather_distance"] > 0
+          and not any(n for k, n in built.items() if k != "gather_distance"),
+          f"the Vamana build's searches did not run on the gather-distance "
+          f"kernel alone: {built}")
+    graph = (cat.backend._adj_np.copy(), cat.backend.medoid)
+    out = replay_twins(wl, truth, graph, dev, built=cat)
+    out["build_s"] = build_s
+    out["launches"]["build"] = built
+    out["pq"] = replay_twins(wl, truth, graph, dev, pq=8)
     return out
 
 
 def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
+    """1,000,000 x 768 over a random regular graph of degree 64, 4 batches
+    of 4,096 queries (beam 16, max_iters 64) under both hop backends, at
+    full precision and with PQ (M=8, K=256)."""
     from repro_torch import db
     from repro_torch.core import buckets as bk
+    from repro_torch.core import pq as pq_mod
     from repro_torch.core.vamana import _random_regular_init, medoid_index
     from repro_torch.kernels import ops
 
@@ -398,13 +624,31 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
     rows = torch.randint(0, N, (4 * B,), generator=gen, device=dev)
     queries = (vectors[rows] + 0.1 * torch.randn((4 * B, D), generator=gen,
                                                  device=dev)).cpu().numpy()
-    torch.cuda.reset_peak_memory_stats()
-    out, ids, paths = {}, {}, {}
-    for hb in ("unfused", "fused"):
-        def drive(hb=hb):
+    out, ids, paths, peak = {}, {}, {}, {}
+
+    # the codebook the PQ twins train, timed alone (same seed stream)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cb = pq_mod.train_pq(torch.Generator().manual_seed(db.IndexSpec().seed
+                                                       + 1),
+                         vectors, PQ_M, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    codes = pq_mod.encode(cb, vectors)
+    torch.cuda.synchronize()
+    out["pq_train_s"], out["pq_encode_s"] = t1 - t0, time.perf_counter() - t1
+    qd = torch.as_tensor(queries[:B], device=dev)
+    out["pq_lut_ms_per_batch"] = cuda_ms(lambda: pq_mod.query_luts(cb, qd),
+                                         reps=10)
+
+    for hb, pq in (("unfused", None), ("fused", None), ("unfused", PQ_M),
+                   ("fused", PQ_M)):
+        name = ("pq_" if pq else "") + hb
+
+        def drive(hb=hb, pq=pq):
             t0 = time.perf_counter()
-            d = db.create(db.IndexSpec(dim=D, degree=64, hop_backend=hb),
-                          vec_np, prebuilt=graph)
+            d = db.create(db.IndexSpec(dim=D, degree=64, hop_backend=hb,
+                                       pq=pq), vec_np, prebuilt=graph)
             create_s = time.perf_counter() - t0
             ms, hops, got = [], [], []
             for i in range(4):
@@ -416,26 +660,38 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
                 got.append(r.ids)
             return d, create_s, ms, hops, got
 
-        (d, create_s, ms, hops, got), paths[hb] = counted(drive)
-        want = expected_launches("catapult", hb, [int(h.max()) for h in hops])
-        check(paths[hb] == want, f"deployment width {hb}: launched "
-                                 f"{paths[hb]}, its batches imply {want}")
-        ids[hb] = np.concatenate(got)
+        torch.cuda.reset_peak_memory_stats()
+        (d, create_s, ms, hops, got), paths[name] = counted(drive)
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+        want = expected_launches("catapult", hb, [int(h.max()) for h in hops],
+                                 pq=bool(pq))
+        check(paths[name] == want, f"deployment width {name}: launched "
+                                   f"{paths[name]}, its batches imply {want}")
+        ids[name] = np.concatenate(got)
         prof = idle_share(d, queries[:B], k=10, beam_width=16, max_iters=64)
         iters = float(np.mean([h.max() for h in hops]))
-        k_ms = kernel_ms["fused_hop_l2" if hb == "fused" else "gather_distance"]
-        out[hb] = dict(create_s=create_s, batch_ms=ms,
-                       batch_ms_mean=float(np.mean(ms)),
-                       mean_hops=float(np.mean(np.concatenate(hops))),
-                       loop_iterations=iters,
-                       host_ms_per_hop=(float(np.mean(ms)) - iters * k_ms)
-                       / iters, one_batch=prof)
-        if hb == "unfused":
+        k_ms = kernel_ms[{(False, "unfused"): "gather_distance",
+                          (False, "fused"): "fused_hop_l2",
+                          (True, "unfused"): "pq_adc",
+                          (True, "fused"): "fused_hop_pq"}[bool(pq), hb]]
+        out[name] = dict(create_s=create_s, batch_ms=ms,
+                         batch_ms_mean=float(np.mean(ms)),
+                         mean_hops=float(np.mean(np.concatenate(hops))),
+                         loop_iterations=iters,
+                         host_ms_per_hop=(float(np.mean(ms)) - iters * k_ms)
+                         / iters, one_batch=prof, peak_memory_gb=peak[name])
+        if pq and hb == "unfused":
+            check(torch.equal(d.backend._pq.centroids, cb.centroids)
+                  and torch.equal(d.backend._codes[:N], codes),
+                  "deployment width: retraining PQ from one seed gave "
+                  "another codebook or other codes")
+            out["pq_stages_batch_4096"] = pq_stages(
+                d, queries[:B], dev, k=10, beam_width=16, max_iters=64)
+        if name == "unfused":
             # the serial-LRU publish of one 4096-query batch, on the host
             st = d.backend._cat
-            qd = torch.as_tensor(queries[:B], device=dev)
             hashes = ops.lsh_hash(qd, st.lsh.hyperplanes)
-            best = torch.as_tensor(ids[hb][:B, 0], device=dev)
+            best = torch.as_tensor(ids[name][:B, 0], device=dev)
             tags = torch.full((B,), -1, dtype=torch.int32, device=dev)
             for nb in (256, B):
                 torch.cuda.synchronize()
@@ -446,7 +702,9 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
                     (time.perf_counter() - t0) * 1e3 / 3
         del d
     out["launches"] = paths
-    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["max_memory_allocated_gb"] = max(peak["unfused"], peak["fused"])
+    out["pq_max_memory_allocated_gb"] = max(peak["pq_unfused"],
+                                            peak["pq_fused"])
     flag = torch.ones(1, dtype=torch.bool, device=dev)
     t0 = time.perf_counter()
     for _ in range(200):
@@ -455,6 +713,8 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
     print(f"deployment width: {out}")
     check(np.array_equal(ids["unfused"], ids["fused"]),
           "deployment width: fused and unfused ids differ")
+    check(np.array_equal(ids["pq_unfused"], ids["pq_fused"]),
+          "deployment width: PQ fused and unfused ids differ")
     return out
 
 
@@ -492,17 +752,22 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     vectors = torch.randn((N, D), generator=gen, device=dev)
     kernels = phase_kernels(vectors, gen, dev)
+    kernels.update(phase_pq_kernels(gen, dev))
+    kernels["l2_distance"] = phase_l2_distance(vectors, dev)
     main_path = phase_main_path(args.seed, dev)
     deploy = phase_deployment(vectors, gen, args.seed, dev,
                               {k: v["ms"] for k, v in kernels.items()})
 
     sources = {"fused_hop_l2": ("fused_hop.cu", "fused_hop.py:160"),
+               "fused_hop_pq": ("fused_hop_pq.cu", "fused_hop.py:204"),
+               "lsh_hash": ("lsh_hash.cu", "lsh_hash.py:29"),
+               "pq_adc": ("pq_adc.cu", "pq_adc.py:39"),
                "gather_distance": ("gather_distance.cu",
                                    "gather_distance.py:35"),
-               "lsh_hash": ("lsh_hash.cu", "lsh_hash.py:29")}
-    by_path = {**main_path["launches"],
-               **{f"deployment_{hb}": n
-                  for hb, n in deploy["launches"].items()}}
+               "l2_distance": ("l2_distance.cu", "l2_distance.py:35")}
+    by_path = {**main_path["launches"], **main_path["pq"]["launches"],
+               **{f"deployment_{name}": n
+                  for name, n in deploy["launches"].items()}}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -512,7 +777,8 @@ def main() -> int:
          "max_abs_err": kernels[name]["max_abs_err"],
          "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
          "bound_ms": kernels[name]["bound_ms"],
-         "bound_by": kernels[name]["bound_by"], "library_ms": None}
+         "bound_by": kernels[name]["bound_by"],
+         "library_ms": kernels[name].get("library_ms")}
         for name, (src, tpu) in sources.items()]}
     if args.out:
         ptxas = {p.stem: p.read_text() for p in build_dir.glob("*.log")}

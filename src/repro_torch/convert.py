@@ -7,6 +7,9 @@ port's state on a given device:
 
 * the catapult layer: LSH hyperplanes + bucket tables in the reference's
   ``buckets.to_arrays`` schema (``ids``/``stamp``/``tag``/``step``),
+* the PQ codebook: (M, K, ds) centroids, installed with
+  ``VectorSearchEngine._init_aux(vectors, pq_codebook=)`` as the
+  reference's disk reopen installs its persisted one,
 * the graph needs no helper: pass ``prebuilt=(adjacency, medoid)`` to
   ``repro_torch.db.create``.
 """
@@ -18,6 +21,7 @@ import torch
 from repro_torch.core import buckets as bk
 from repro_torch.core.catapult import CatapultState
 from repro_torch.core.lsh import LSHParams
+from repro_torch.core.pq import PQCodebook
 from repro_torch.device import resolve_device
 
 
@@ -28,3 +32,10 @@ def catapult_state_from_numpy(hyperplanes: np.ndarray, bucket_arrays,
     h = torch.tensor(np.asarray(hyperplanes, np.float32), device=device)
     return CatapultState(lsh=LSHParams(hyperplanes=h),
                          buckets=bk.from_arrays(bucket_arrays, device))
+
+
+def pq_codebook_from_numpy(centroids: np.ndarray, device="cuda") -> PQCodebook:
+    """(M, K, ds) centroids -> PQCodebook on ``device``."""
+    device = resolve_device(device)
+    return PQCodebook(centroids=torch.tensor(
+        np.asarray(centroids, np.float32), device=device))

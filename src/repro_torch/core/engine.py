@@ -8,12 +8,14 @@ one index + one acceleration mode:
 * ``mode='catapult'``  — CatapultDB: LSH-bucketed shortcut layer
                          (the paper's contribution).
 
+``pq_subspaces=M`` traverses with DiskANN's PQ-approximate distances and
+reranks the whole final beam at full precision.
+
 The search path runs on the engine's ``device`` (the card by default);
 the host keeps numpy mirrors for graph surgery (build).  Not ported yet,
 and raising ``NotImplementedError`` naming their ROADMAP item:
-``mode='lsh_apg'``, PQ traversal (``pq_subspaces``), filtered search
-(labels), ``insert``/``delete``/``consolidate`` and
-``search_two_phase``.
+``mode='lsh_apg'``, filtered search (labels),
+``insert``/``delete``/``consolidate`` and ``search_two_phase``.
 """
 from __future__ import annotations
 
@@ -25,10 +27,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import catapult as cat
+from repro_torch.core import pq as pq_mod
 from repro_torch.core.beam_search import SearchSpec, beam_search, l2_dist_fn
 from repro_torch.core.vamana import VamanaParams, build_vamana
 from repro_torch.device import resolve_device
-from repro_torch.kernels.fused_hop import FusedL2Hop
+from repro_torch.kernels.fused_hop import FusedL2Hop, FusedPQHop
 
 _ITEM5 = "ROADMAP queue 1, item 5 (core/engine.py beyond the RAM-tier main path)"
 
@@ -98,9 +101,6 @@ class VectorSearchEngine:
                                       f"({_ITEM5}: core/lsh_apg.py)")
         if self.mode not in ('catapult', 'diskann'):
             raise ValueError(f"unknown mode {self.mode!r}")
-        if self.pq_subspaces:
-            raise NotImplementedError(f"PQ traversal is not ported yet "
-                                      f"({_ITEM5}: core/pq.py)")
         if self.hop_backend not in ('unfused', 'fused'):
             raise ValueError(f"unknown hop_backend {self.hop_backend!r}")
 
@@ -138,23 +138,48 @@ class VectorSearchEngine:
         self._sync_device()
         return self
 
-    def _init_aux(self, vectors: np.ndarray) -> None:
-        """Catapult LSH + buckets, deterministic in (seed, dim).
+    def _init_aux(self, vectors: np.ndarray,
+                  pq_codebook: pq_mod.PQCodebook | None = None) -> None:
+        """Catapult LSH + buckets and the PQ codebook + codes,
+        deterministic in (seed, vectors).
 
         The hyperplanes come from a CPU ``torch.Generator`` seeded with
-        ``seed`` (the reference uses ``jax.random``; the two differ), so
-        one seed gives the same planes on the CPU and on the card."""
+        ``seed`` and the codebook's initial rows from a second one seeded
+        with ``seed + 1`` (the reference splits one ``jax.random`` key;
+        torch cannot replay it), so one seed gives the same state on the
+        CPU and on the card.  ``pq_codebook`` skips the training (a
+        carried-over codebook, as the reference's disk reopen passes its
+        persisted one); the codes are encoded from it either way."""
         if self.mode == 'catapult':
             gen = torch.Generator().manual_seed(self.seed)
             self._cat = cat.make_catapult_state(
                 gen, vectors.shape[1], self.n_bits, self.bucket_capacity,
                 self.device)
+        if self.pq_subspaces:
+            x = torch.as_tensor(vectors, device=self.device)
+            if pq_codebook is not None:
+                if pq_codebook.n_subspaces != self.pq_subspaces:
+                    raise ValueError(
+                        f"codebook has {pq_codebook.n_subspaces} subspaces, "
+                        f"the engine {self.pq_subspaces}")
+                self._pq = pq_mod.PQCodebook(
+                    pq_codebook.centroids.to(self.device))
+            else:
+                gen = torch.Generator().manual_seed(self.seed + 1)
+                self._pq = pq_mod.train_pq(gen, x, self.pq_subspaces,
+                                           device=self.device)
+            codes = np.zeros((self._vec_np.shape[0], self.pq_subspaces),
+                             np.int32)
+            codes[:x.shape[0]] = pq_mod.encode(self._pq, x).cpu().numpy()
+            self._codes_np = codes
 
     # ---------------------------------------------------------------- device
     def _sync_device(self) -> None:
         self._adj = torch.as_tensor(self._adj_np, device=self.device)
         self._vec = torch.as_tensor(self._vec_np, device=self.device)
         self._tomb = torch.as_tensor(self._tomb_np, device=self.device)
+        self._codes = (torch.as_tensor(self._codes_np, device=self.device)
+                       if self.pq_subspaces else None)
 
     # ---------------------------------------------------------------- search
     def search(self, queries: np.ndarray, k: int,
@@ -168,8 +193,8 @@ class VectorSearchEngine:
 
         ``publish_mask`` ((B,) bool) opts lanes out of the catapult
         bucket publish and usage stats.  ``trace`` is an optional
-        ``repro_torch.obs.TraceRecorder``: the route stage is timed into
-        it (synced with the device).
+        ``repro_torch.obs.TraceRecorder``: the route and rerank stages
+        are timed into it (each synced with the device).
         """
         if filter_labels is not None:
             raise NotImplementedError(f"filtered search is not ported yet "
@@ -177,35 +202,48 @@ class VectorSearchEngine:
         q = torch.as_tensor(np.ascontiguousarray(queries, np.float32),
                             device=self.device)
         l = beam_width or max(2 * k, 16)
+        # PQ mode reranks the *entire* final beam at full precision
+        # (DiskANN's fetch of the candidate list), so the search returns
+        # the whole beam, not just k PQ-approximate winners.
         # max_iters is a SAFETY bound, not a budget: Algorithm 1 stops
         # when the beam converges.
-        spec = SearchSpec(beam_width=l, k=k,
+        spec = SearchSpec(beam_width=l, k=(l if self.pq_subspaces else k),
                           max_iters=max_iters or (4 * l + 64),
                           hop_backend=self.hop_backend)
         stage = trace.stage if trace is not None else (lambda _: nullcontext())
+        sync = trace is not None and self.device.type == "cuda"
         with stage("route"):
             res, used, won = self._dispatch(q, spec, publish_mask=publish_mask)
-            if trace is not None and self.device.type == "cuda":
+            if sync:
                 torch.cuda.synchronize(self.device)
+        ids, dists = res.ids, res.dists
+        with stage("rerank"):
+            if self.pq_subspaces:
+                ids, dists = pq_mod.rerank(self._vec, q, ids, k)
+                if sync:
+                    torch.cuda.synchronize(self.device)
         stats = SearchStats(hops=res.hops.cpu().numpy(),
                             ndists=res.ndists.cpu().numpy(), used=used,
                             won=won)
-        return res.ids.cpu().numpy(), res.dists.cpu().numpy(), stats
+        return ids.cpu().numpy(), dists.cpu().numpy(), stats
 
     def _dispatch(self, queries: torch.Tensor, spec: SearchSpec,
                   publish_mask=None):
         """Run the mode's traversal; returns (raw result, used, won)."""
         b = queries.shape[0]
+        dist = _mk_dist(self._vec, spec.hop_backend,
+                        (self._pq, self._codes) if self.pq_subspaces
+                        else None)
         if self.mode == 'catapult':
             pm = (None if publish_mask is None
                   else torch.as_tensor(np.asarray(publish_mask, bool),
                                        device=self.device))
             new_cat, res, st = _search_catapult(
-                self._cat, self._adj, self._vec, self._tomb, queries,
+                self._cat, self._adj, dist, self._tomb, queries,
                 self.medoid, spec, pm)
             self._cat = new_cat
             return res, st.used.cpu().numpy(), st.won.cpu().numpy()
-        res = _search_diskann(self._adj, self._vec, self._tomb, queries,
+        res = _search_diskann(self._adj, dist, self._tomb, queries,
                               self.medoid, spec)
         z = np.zeros(b, bool)
         return res, z, z
@@ -232,13 +270,15 @@ class VectorSearchEngine:
 # search paths (functions of tensors only)
 # ---------------------------------------------------------------------------
 
-def _mk_dist(vec: torch.Tensor, hop_backend: str = 'unfused'):
+def _mk_dist(vec: torch.Tensor, hop_backend: str = 'unfused', pq=None):
+    """The traversal's dist_fn: full-precision L2 over ``vec``, or with
+    ``pq=(codebook, codes)`` PQ-ADC distances (built once per batch)."""
     if hop_backend == 'fused':
-        # the fused backend IS a dist_fn (the same gather-distance kernel,
-        # so catapult entry scoring is identical) that also lets
-        # beam_search run one fused-hop kernel per hop
-        return FusedL2Hop(vec)
-    return l2_dist_fn(vec)
+        # fused backends ARE dist_fns (the composed hop's kernel, so
+        # catapult entry scoring is identical) that also let beam_search
+        # run one fused-hop kernel per hop
+        return FusedPQHop(*pq) if pq else FusedL2Hop(vec)
+    return pq_mod.adc_dist_fn(*pq) if pq else l2_dist_fn(vec)
 
 
 def _masks(tomb: torch.Tensor):
@@ -248,17 +288,16 @@ def _masks(tomb: torch.Tensor):
     return result_mask
 
 
-def _search_diskann(adj, vec, tomb, queries, medoid: int, spec: SearchSpec):
+def _search_diskann(adj, dist, tomb, queries, medoid: int, spec: SearchSpec):
     b = queries.shape[0]
     starts = torch.full((b, 1), medoid, dtype=torch.int32,
                         device=queries.device)
-    return beam_search(adj, queries, starts, spec,
-                       _mk_dist(vec, spec.hop_backend),
+    return beam_search(adj, queries, starts, spec, dist,
                        result_mask_fn=_masks(tomb))
 
 
-def _search_catapult(cat_state, adj, vec, tomb, queries, medoid: int,
+def _search_catapult(cat_state, adj, dist, tomb, queries, medoid: int,
                      spec: SearchSpec, publish_mask=None):
     return cat.catapulted_lookup(
-        cat_state, adj, queries, spec, _mk_dist(vec, spec.hop_backend),
-        medoid, result_mask_fn=_masks(tomb), publish_mask=publish_mask)
+        cat_state, adj, queries, spec, dist, medoid,
+        result_mask_fn=_masks(tomb), publish_mask=publish_mask)

@@ -42,7 +42,8 @@ def create(spec: IndexSpec, vectors: Optional[np.ndarray] = None,
         raise ValueError(f"spec.dim={spec.dim} but vectors have dim {d}")
     eng = VectorSearchEngine(
         mode=spec.mode, vamana=spec.vamana(), n_bits=spec.n_bits,
-        bucket_capacity=spec.bucket_capacity, seed=spec.seed,
+        bucket_capacity=spec.bucket_capacity, pq_subspaces=spec.pq,
+        seed=spec.seed,
         capacity=n + spec.spare_capacity, hop_backend=spec.hop_backend,
         device=dev)
     eng.build(vectors, prebuilt=prebuilt)

@@ -2,9 +2,10 @@
 
 Port of ``repro/db/spec.py``.  ``IndexSpec`` keeps the reference's
 fields and validation, so one spec reads the same in both packages.
-This slice of the port serves the RAM tier at full precision, unfiltered
-and without the adapt layer; a spec asking for anything else raises
-``CapabilityError`` naming the ROADMAP item that will bring it.
+The port serves the RAM tier, at full precision or with PQ traversal
+(``pq=M``), unfiltered and without the adapt layer; a spec asking for
+anything else raises ``CapabilityError`` naming the ROADMAP item that
+will bring it.
 ``io``/``ingest``/``tiered``/``adapt`` keep their places but only take
 ``None`` for now (their spec types come with their tiers).
 """
@@ -41,8 +42,6 @@ class Caps(NamedTuple):
 _NOT_PORTED = {
     "tier": "ROADMAP queue 1, items 8-10 (disk, sharded and tiered tiers)",
     "mode": "ROADMAP queue 1, item 5 (core/lsh_apg.py)",
-    "pq": "ROADMAP queue 1, item 5 (core/pq.py) and queue 2 (fused_hop_pq, "
-          "pq_adc)",
     "filters": "ROADMAP queue 1, item 5 (core/filters.py)",
     "adapt": "ROADMAP queue 1, item 7 (adapt/)",
     "io": "ROADMAP queue 1, item 8 (disk tier I/O engine)",
@@ -118,7 +117,7 @@ class IndexSpec:
             raise ValueError(f"hop_backend must be one of {HOP_BACKENDS}, "
                              f"got {self.hop_backend!r}")
         asked = {"tier": self.tier != "ram", "mode": self.mode == "lsh_apg",
-                 "pq": self.pq is not None, "filters": self.filters,
+                 "filters": self.filters,
                  "adapt": self.adapt is not None, "io": self.io is not None,
                  "ingest": self.ingest is not None,
                  "tiered": self.tiered is not None}

@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNELS = ("gather_distance", "lsh_hash", "fused_hop")
+KERNELS = ("gather_distance", "lsh_hash", "fused_hop", "fused_hop_pq",
+           "pq_adc", "l2_distance")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,8 +38,16 @@ SIGNATURES = {
     "fused_hop": {
         "launch_fused_hop_l2": [_P] * 10 + [_I] * 5 + [_P],
         "fused_hop_l2_smem_bytes": [_I, _I]},
+    "fused_hop_pq": {
+        "launch_fused_hop_pq": [_P] * 10 + [_I] * 6 + [_P],
+        "fused_hop_pq_smem_bytes": [_I] * 4},
+    "pq_adc": {"launch_pq_adc": [_P, _P, _P, _I, _I, _I, _I, _P],
+               "pq_adc_smem_bytes": [_I, _I]},
+    "l2_distance": {"launch_l2_distance": [_P, _P, _P, _I, _I, _I, _P]},
 }
-RESTYPES = {"fused_hop_l2_smem_bytes": ctypes.c_size_t}
+RESTYPES = {"fused_hop_l2_smem_bytes": ctypes.c_size_t,
+            "fused_hop_pq_smem_bytes": ctypes.c_size_t,
+            "pq_adc_smem_bytes": ctypes.c_size_t}
 
 
 def find_nvcc() -> str:

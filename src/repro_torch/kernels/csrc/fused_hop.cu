@@ -14,26 +14,18 @@
 // touches (L+C) entries per lane in shared memory and is noise beside it.
 //
 // Design: one block per lane, 8 warps.
-//   1. The lane's candidate ids and beam go to shared memory, laid out
-//      as the concatenation [beam | candidates] the merge ranks over.
-//   2. A lane with no valid candidate (a converged lane in a divergent
-//      batch) loads no row at all; its merge re-emits the beam, as the
-//      Pallas kernel's pl.when skips the DMAs.
-//   3. Warp w scores candidates w, w+8, ... with the shared row_sqdist,
+//   1. hop_stage (hop_merge.cuh) puts the lane's [beam | candidates] in
+//      shared memory; a lane with no valid candidate loads no row.
+//   2. Warp w scores candidates w, w+8, ... with the shared row_sqdist,
 //      so distances are bit-identical to gather_distance's.
-//   4. Thread j marks candidate j a duplicate if it is in the beam or
-//      equals an earlier candidate; duplicates and -1 ids score +inf.
-//   5. Stable top-L as a rank selection: entry i goes to slot
-//      rank_i = #{k : d_k < d_i} + #{k < i : d_k == d_i} when rank_i < L.
-//      (d, index) is a total order, so every slot has exactly one
-//      writer, and the order is that of a stable argsort — the order the
-//      reference's first-minimum selection loop produces.
+//   3. hop_merge (hop_merge.cuh, shared with fused_hop_pq) dedups and
+//      takes the stable top-L by rank selection.
 // No grid-wide state: blocks are independent, so the TPU kernel's
 // sequential grid maps onto 132 SMs without change.
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
+#include "hop_merge.cuh"
 #include "sqdist.cuh"
 
 namespace {
@@ -54,90 +46,31 @@ fused_hop_l2_kernel(const float* __restrict__ vectors,
                     int* __restrict__ out_fresh,
                     int n, int c, int l, int d) {
     extern __shared__ unsigned char smem[];
-    const int m = l + c;
-    int* cat_ids = reinterpret_cast<int*>(smem);                // (m,)
-    float* cat_d = reinterpret_cast<float*>(cat_ids + m);       // (m,)
-    int* n_fresh = reinterpret_cast<int*>(cat_d + m);           // (1,)
-    uint8_t* cat_exp = reinterpret_cast<uint8_t*>(n_fresh + 1);  // (m,)
-
+    const HopSmem s = hop_smem_layout(smem, c, l);
     const long long lane_idx = blockIdx.x;
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5;
-    const int wl = tid & 31;
+    const int warp = threadIdx.x >> 5;
+    const int wl = threadIdx.x & 31;
 
-    // 1. stage [beam | candidates]
-    bool has_valid = false;
-    for (int i = tid; i < m; i += kThreads) {
-        if (i < l) {
-            cat_ids[i] = beam_ids[lane_idx * l + i];
-            cat_d[i] = beam_dists[lane_idx * l + i];
-            cat_exp[i] = beam_exp[lane_idx * l + i] ? 1 : 0;
-        } else {
-            const int id = cand_ids[lane_idx * c + (i - l)];
-            cat_ids[i] = id;
-            cat_d[i] = CUDART_INF_F;
-            cat_exp[i] = 0;
-            has_valid |= id >= 0;
-        }
-    }
-    if (tid == 0) *n_fresh = 0;
-    // 2. an all -1 lane skips the gather entirely
-    const bool any_valid = __syncthreads_or(has_valid);
-
-    // 3. one warp per candidate row
+    const bool any_valid = hop_stage(s, cand_ids, beam_ids, beam_dists,
+                                     beam_exp, lane_idx, c, l);
+    // one warp per candidate row
     if (any_valid) {
         const float* q = queries + lane_idx * d;
         for (int j = warp; j < c; j += kWarps) {
-            const int id = cat_ids[l + j];
+            const int id = s.ids[l + j];
             if (id < 0) continue;                         // warp-uniform
             const int row = min(id, n - 1);
-            const float s = row_sqdist(vectors + (long long)row * d, q, d, wl);
-            if (wl == 0) cat_d[l + j] = s;
+            const float v = row_sqdist(vectors + (long long)row * d, q, d, wl);
+            if (wl == 0) s.d[l + j] = v;
         }
     }
-    __syncthreads();
-
-    // 4. dedup against the beam and earlier candidates
-    int fresh_here = 0;
-    for (int j = tid; j < c; j += kThreads) {
-        const int id = cat_ids[l + j];
-        bool dup = false;
-        for (int k = 0; k < l; ++k) {
-            const int b = cat_ids[k];
-            dup |= (b == id) & (b >= 0);
-        }
-        for (int k = 0; k < j; ++k) dup |= cat_ids[l + k] == id;
-        const bool fresh = !dup && id >= 0;
-        if (!fresh) cat_d[l + j] = CUDART_INF_F;
-        fresh_here += fresh ? 1 : 0;
-    }
-    if (fresh_here) atomicAdd(n_fresh, fresh_here);
-    __syncthreads();
-
-    // 5. stable rank selection of the L closest
-    for (int i = tid; i < m; i += kThreads) {
-        const float di = cat_d[i];
-        int rank = 0;
-        for (int k = 0; k < m; ++k) {
-            const float dk = cat_d[k];
-            rank += (dk < di) | ((k < i) & (dk == di));
-        }
-        if (rank < l) {
-            const bool invalid = !isfinite(di);
-            const long long o = lane_idx * l + rank;
-            out_ids[o] = invalid ? -1 : cat_ids[i];
-            out_dists[o] = di;
-            out_exp[o] = invalid ? 1 : cat_exp[i];
-        }
-    }
-    if (tid == 0) out_fresh[lane_idx] = *n_fresh;
+    hop_merge(s, out_ids, out_dists, out_exp, out_fresh, lane_idx, c, l);
 }
 
 }  // namespace
 
 extern "C" size_t fused_hop_l2_smem_bytes(int c, int l) {
-    const size_t m = (size_t)l + c;
-    return m * (sizeof(int) + sizeof(float) + sizeof(uint8_t)) + sizeof(int);
+    return hop_smem_bytes(c, l);
 }
 
 extern "C" int launch_fused_hop_l2(const float* vectors, const int* cand_ids,

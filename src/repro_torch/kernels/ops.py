@@ -24,12 +24,16 @@ import torch
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
 
-LAUNCHES = {"gather_distance": 0, "lsh_hash": 0, "fused_hop_l2": 0}
+LAUNCHES = {"gather_distance": 0, "lsh_hash": 0, "fused_hop_l2": 0,
+            "fused_hop_pq": 0, "pq_adc": 0, "l2_distance": 0}
 
 # bucket tables hold 2**L rows and codes are non-negative int32
 MAX_LSH_BITS = 30
-# the fused hop keeps [beam | candidates] in static-size shared memory
+# the fused hops keep [beam | candidates] (and the PQ ones the lane's
+# (M, K) LUT) in static-size shared memory
 MAX_SMEM_BYTES = 48 * 1024
+# l2_distance tiles B in 64-row blocks along the grid's y dimension
+MAX_L2_ROWS = 65535 * 64
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -43,6 +47,12 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_smem(nbytes: int, what: str) -> None:
+    if nbytes > MAX_SMEM_BYTES:
+        raise ValueError(f"{what} needs {nbytes} bytes of shared memory, "
+                         f"more than the kernel's {MAX_SMEM_BYTES}")
 
 
 def _on_card(device: torch.device) -> bool:
@@ -143,9 +153,8 @@ def fused_hop_l2(vectors, cand_ids, queries, beam_ids, beam_dists, beam_exp):
         return ref.fused_hop_ref(vectors, cand_ids, queries, beam_ids,
                                  beam_dists, beam_exp)
     lib = library("fused_hop")
-    if lib.fused_hop_l2_smem_bytes(c, l) > MAX_SMEM_BYTES:
-        raise ValueError(f"C + L = {c + l} entries exceed the fused hop's "
-                         f"{MAX_SMEM_BYTES} bytes of shared memory")
+    _check_smem(lib.fused_hop_l2_smem_bytes(c, l),
+                f"C + L = {c + l} entries")
     out_ids = torch.empty((b, l), dtype=torch.int32, device=dev)
     out_d = torch.empty((b, l), dtype=torch.float32, device=dev)
     out_exp = torch.empty((b, l), dtype=torch.bool, device=dev)
@@ -159,3 +168,104 @@ def fused_hop_l2(vectors, cand_ids, queries, beam_ids, beam_dists, beam_exp):
     _raise_on(rc, "fused_hop_l2")
     LAUNCHES["fused_hop_l2"] += 1
     return out_ids, out_d, out_exp, out_nf
+
+
+def pq_adc(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(B, M, K) f32 LUTs, (B, C, M) int32 codes -> (B, C) f32 ADC sums
+    ``Σ_m luts[b, m, codes[b, c, m]]``.
+
+    Codes lie in [0, K) by construction (``core.pq.encode`` is an
+    argmin over K centroids); the kernel does not check them."""
+    dev = luts.device
+    _check("luts", luts, torch.float32, 3, dev)
+    _check("codes", codes, torch.int32, 3, dev)
+    b, m, k = luts.shape
+    c = codes.shape[1]
+    if codes.shape != (b, c, m):
+        raise ValueError(f"codes shape {tuple(codes.shape)} != (B, C, M) "
+                         f"with B={b}, M={m}")
+    if not _on_card(dev):
+        return ref.pq_adc_ref(luts, codes)
+    lib = library("pq_adc")
+    _check_smem(lib.pq_adc_smem_bytes(m, k), f"an (M, K) = {(m, k)} LUT")
+    out = torch.empty((b, c), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    rc = lib.launch_pq_adc(_ptr(luts), _ptr(codes), _ptr(out), b, c, m, k,
+                           _stream(dev))
+    _raise_on(rc, "pq_adc")
+    LAUNCHES["pq_adc"] += 1
+    return out
+
+
+def fused_hop_pq(luts, codes, cand_ids, beam_ids, beam_dists, beam_exp):
+    """One fused PQ-ADC hop (code gather + ADC + beam merge) for a batch.
+
+    (B, M, K) f32 LUTs, (N, M) int32 code table, (B, C) int32 candidate
+    ids, (B, L) int32/f32/bool beam -> (new_ids, new_dists, new_exp,
+    n_fresh).  Codes lie in [0, K) by construction; not checked.
+    """
+    dev = luts.device
+    _check("luts", luts, torch.float32, 3, dev)
+    _check("codes", codes, torch.int32, 2, dev)
+    _check("cand_ids", cand_ids, torch.int32, 2, dev)
+    _check("beam_ids", beam_ids, torch.int32, 2, dev)
+    _check("beam_dists", beam_dists, torch.float32, 2, dev)
+    _check("beam_exp", beam_exp, torch.bool, 2, dev)
+    b, m, k = luts.shape
+    n = codes.shape[0]
+    c = cand_ids.shape[1]
+    l = beam_ids.shape[1]
+    if codes.shape[1] != m:
+        raise ValueError(f"codes have {codes.shape[1]} subspaces, LUTs {m}")
+    if cand_ids.shape[0] != b:
+        raise ValueError(f"cand_ids has {cand_ids.shape[0]} lanes, LUTs {b}")
+    if beam_ids.shape != (b, l) or beam_dists.shape != (b, l) \
+            or beam_exp.shape != (b, l):
+        raise ValueError("beam_ids/beam_dists/beam_exp must all be (B, L)")
+    if not _on_card(dev):
+        return ref.fused_hop_pq_ref(luts, codes, cand_ids, beam_ids,
+                                    beam_dists, beam_exp)
+    lib = library("fused_hop_pq")
+    _check_smem(lib.fused_hop_pq_smem_bytes(c, l, m, k),
+                f"an (M, K) = {(m, k)} LUT beside C + L = {c + l} entries")
+    out_ids = torch.empty((b, l), dtype=torch.int32, device=dev)
+    out_d = torch.empty((b, l), dtype=torch.float32, device=dev)
+    out_exp = torch.empty((b, l), dtype=torch.bool, device=dev)
+    out_nf = torch.empty((b,), dtype=torch.int32, device=dev)
+    if b == 0 or l == 0:
+        return out_ids, out_d, out_exp, out_nf.zero_()
+    rc = lib.launch_fused_hop_pq(
+        _ptr(luts), _ptr(codes), _ptr(cand_ids), _ptr(beam_ids),
+        _ptr(beam_dists), _ptr(beam_exp), _ptr(out_ids), _ptr(out_d),
+        _ptr(out_exp), _ptr(out_nf), n, b, c, l, m, k, _stream(dev))
+    _raise_on(rc, "fused_hop_pq")
+    LAUNCHES["fused_hop_pq"] += 1
+    return out_ids, out_d, out_exp, out_nf
+
+
+def l2_distance(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """(B, d) f32 queries, (C, d) f32 points -> (B, C) f32 squared L2.
+
+    The kernel computes the expanded form ``‖q‖² + ‖x‖² − 2q·x`` (as the
+    reference's Pallas kernel does), the plain version the direct form;
+    they agree to about 1e-4.  No search path calls it."""
+    dev = queries.device
+    _check("queries", queries, torch.float32, 2, dev)
+    _check("points", points, torch.float32, 2, dev)
+    b, d = queries.shape
+    c = points.shape[0]
+    if points.shape[1] != d:
+        raise ValueError(f"points have dim {points.shape[1]}, queries {d}")
+    if b > MAX_L2_ROWS:
+        raise ValueError(f"{b} queries > {MAX_L2_ROWS}, the kernel's grid")
+    if not _on_card(dev):
+        return ref.l2_distance_ref(queries, points)
+    out = torch.empty((b, c), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    rc = library("l2_distance").launch_l2_distance(
+        _ptr(queries), _ptr(points), _ptr(out), b, c, d, _stream(dev))
+    _raise_on(rc, "l2_distance")
+    LAUNCHES["l2_distance"] += 1
+    return out

@@ -3,12 +3,31 @@
 Each function is the semantic ground truth its CUDA kernel is held to
 (``chip_smoke.py`` on the card) and the path ``ops`` takes for tensors
 on the CPU.  They mirror ``repro/kernels/ref.py`` with one difference:
-``gather_distance_ref`` is batched to (B, C) — one query per row of ids —
-because that is the shape every caller in the port hands it.
+``gather_distance_ref`` and ``pq_adc_ref`` are batched to (B, C) — one
+query (one LUT) per row of ids — because that is the shape every caller
+in the port hands them.  ``l2_distance_ref`` computes every (query,
+point) block in the direct form, a block of queries at a time, so that
+its (rows, C, d) difference stays near ``CHUNK_ELEMS`` elements.
 """
 from __future__ import annotations
 
 import torch
+
+# elements of one (rows, C, d) difference block of l2_distance_ref (1 GiB)
+CHUNK_ELEMS = 2 ** 28
+
+
+def l2_distance_ref(queries: torch.Tensor,
+                    points: torch.Tensor) -> torch.Tensor:
+    """(B, d), (C, d) -> (B, C) squared L2 distances (direct form)."""
+    b, c = queries.shape[0], points.shape[0]
+    out = torch.empty((b, c), dtype=torch.float32, device=queries.device)
+    step = max(1, CHUNK_ELEMS // max(1, c * points.shape[1]))
+    x = points.float()
+    for lo in range(0, b, step):
+        q = queries[lo: lo + step].float()
+        out[lo: lo + step] = torch.square(q[:, None, :] - x[None]).sum(-1)
+    return out
 
 
 def gather_distance_ref(vectors: torch.Tensor, ids: torch.Tensor,
@@ -27,6 +46,16 @@ def lsh_hash_ref(queries: torch.Tensor,
     weights = 2 ** torch.arange(hyperplanes.shape[0], dtype=torch.int32,
                                 device=queries.device)
     return (bits * weights).sum(-1).to(torch.int32)
+
+
+def pq_adc_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """(B, M, K) LUTs, (B, C, M) codes -> (B, C) summed asymmetric
+    distances ``Σ_m luts[b, m, codes[b, c, m]]``, added in m order."""
+    g = luts.float().gather(2, codes.long().transpose(1, 2))    # (B, M, C)
+    acc = g[:, 0]
+    for m in range(1, g.shape[1]):
+        acc = acc + g[:, m]
+    return acc
 
 
 def _merge_ref(cand_ids, cand_d, beam_ids, beam_d, beam_exp):
@@ -61,4 +90,15 @@ def fused_hop_ref(vectors, cand_ids, queries, beam_ids, beam_dists, beam_exp):
     state -> (new_ids, new_dists, new_exp, n_fresh), all batched.
     """
     d = gather_distance_ref(vectors, cand_ids, queries)
+    return _merge_ref(cand_ids, d, beam_ids, beam_dists, beam_exp)
+
+
+def fused_hop_pq_ref(luts, codes, cand_ids, beam_ids, beam_dists, beam_exp):
+    """Plain version of ``fused_hop_pq``: batched code gather + ADC + merge.
+
+    (B, M, K) per-query LUTs, (N, M) code table, (B, C) candidate ids,
+    (B, L) beam state -> (new_ids, new_dists, new_exp, n_fresh).
+    """
+    d = pq_adc_ref(luts, codes[cand_ids.clamp(min=0).long()])
+    d = torch.where(cand_ids < 0, torch.inf, d)
     return _merge_ref(cand_ids, d, beam_ids, beam_dists, beam_exp)

@@ -1,6 +1,7 @@
 """repro_torch on the card: each CUDA kernel against its plain version,
-the two hop backends bit-identical, and no CUDA tensor reaching a plain
-version.  Every test here needs an NVIDIA GPU and skips without one.
+the two hop backends bit-identical (full precision and PQ), and no CUDA
+tensor reaching a plain version.  Every test here needs an NVIDIA GPU
+and skips without one.
 
 The module imports neither JAX nor the reference package, so it runs on
 a machine that has only PyTorch:
@@ -8,10 +9,12 @@ a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Tolerances: distances rtol 1e-5 (the kernel's warp-strided sum and
-torch's reduction add the d squares in different orders); ids, expanded
-flags and fresh counts exactly equal where no two distances tie within
-that tolerance; LSH codes equal except where a projection sits within
-1e-5 * |q| * |h| of 0.
+torch's reduction add the d squares in different orders); PQ distances
+rtol 1e-6 (sums of M LUT entries); ids, expanded flags and fresh counts
+exactly equal where no two distances tie within that tolerance; LSH
+codes equal except where a projection sits within 1e-5 * |q| * |h| of
+0; ``l2_distance`` rtol/atol 1e-4 (the kernel's expanded form against
+the plain version's direct form).
 """
 from __future__ import annotations
 
@@ -53,6 +56,15 @@ def _hop_inputs(rng, n, b, c, l, d):
     return vec, cand, q, bids.contiguous(), bd.contiguous(), bexp
 
 
+def _pq_tables(rng, n, b, m, k, dev):
+    """(B, M, K) LUTs of squared values and an (N, M) code table."""
+    luts = torch.as_tensor((rng.normal(size=(b, m, k)) ** 2)
+                           .astype(np.float32), device=dev)
+    codes = torch.as_tensor(rng.integers(0, k, size=(n, m)).astype(np.int32),
+                            device=dev)
+    return luts, codes
+
+
 def _close(got, want):
     got, want = got.cpu(), want.cpu()
     assert torch.equal(torch.isfinite(got), torch.isfinite(want))
@@ -88,7 +100,8 @@ def test_kernels_match_plain(dev, n, b, c, l, d):
     assert torch.equal(codes[ok], ops.lsh_hash(cpu[2], h)[ok])
     torch.cuda.synchronize()
     assert {k: ops.LAUNCHES[k] - start[k] for k in start} == {
-        "gather_distance": 1, "lsh_hash": 1, "fused_hop_l2": 1}
+        "gather_distance": 1, "lsh_hash": 1, "fused_hop_l2": 1,
+        "fused_hop_pq": 0, "pq_adc": 0, "l2_distance": 0}
 
 
 def test_cuda_tensors_never_reach_the_plain_versions(dev, monkeypatch):
@@ -96,12 +109,17 @@ def test_cuda_tensors_never_reach_the_plain_versions(dev, monkeypatch):
         raise AssertionError("a CUDA tensor reached a plain version")
     rng = np.random.default_rng(0)
     gpu = [t.to(dev) for t in _hop_inputs(rng, 100, 4, 8, 4, 16)]
+    luts, codes = _pq_tables(rng, 100, 4, 8, 256, dev)
     for name in ("gather_distance_ref", "lsh_hash_ref", "fused_hop_ref",
-                 "_merge_ref"):
+                 "_merge_ref", "pq_adc_ref", "fused_hop_pq_ref",
+                 "l2_distance_ref"):
         monkeypatch.setattr(ref, name, refuse)
     ops.gather_distance(*gpu[:3])
     ops.fused_hop_l2(*gpu)
     ops.lsh_hash(gpu[2], gpu[0][:8].contiguous())
+    ops.pq_adc(luts, codes[gpu[1].clamp(min=0).long()])
+    ops.fused_hop_pq(luts, codes, *gpu[1:2], *gpu[3:])
+    ops.l2_distance(gpu[2], gpu[0])
     torch.cuda.synchronize()
 
 
@@ -159,3 +177,127 @@ def test_database_on_the_card_matches_the_cpu(dev):
         recalls[where] = recall_at_k(ids, truth)
         assert stats.used.all()
     assert abs(recalls["cuda"] - recalls["cpu"]) <= 0.01, recalls
+
+
+@pytest.mark.parametrize("n,b,c,l,m,k", [(500, 16, 32, 16, 8, 256),
+                                         (100000, 512, 64, 16, 8, 256),
+                                         (100000, 512, 41, 16, 8, 256),
+                                         (300, 5, 1, 2, 4, 16),
+                                         (300, 3, 200, 40, 16, 64)])
+def test_pq_kernels_match_plain(dev, n, b, c, l, m, k):
+    rng = np.random.default_rng(n + c + m)
+    luts, codes = _pq_tables(rng, n, b, m, k, dev)
+    _, cand, _, bids, _, _ = _hop_inputs(rng, n, b, c, l, 4)
+    cand, bids = cand.to(dev), bids.to(dev)
+    bd = torch.where(bids < 0, torch.inf, ref.pq_adc_ref(
+        luts, codes[bids.clamp(min=0).long()]))
+    bd, order = torch.sort(bd, dim=1, stable=True)
+    bids = bids.gather(1, order).contiguous()
+    bd = bd.contiguous()
+    bexp = (bids < 0) | torch.as_tensor(rng.random((b, l)) < 0.5,
+                                        device=dev)
+    start = dict(ops.LAUNCHES)
+    rows = codes[cand.clamp(min=0).long()]
+    got_adc = ops.pq_adc(luts, rows)
+    torch.testing.assert_close(got_adc, ref.pq_adc_ref(luts, rows),
+                               rtol=1e-6, atol=0)
+    got = ops.fused_hop_pq(luts, codes, cand, bids, bd, bexp)
+    # bit for bit the composed hop: the plain merge over pq_adc's sums
+    composed = ref._merge_ref(cand, torch.where(cand < 0, torch.inf,
+                                                got_adc), bids, bd, bexp)
+    for g, w in zip(got, composed):
+        assert torch.equal(g, w)
+    want = ref.fused_hop_pq_ref(luts, codes, cand, bids, bd, bexp)
+    assert torch.equal(got[3], want[3])
+    nxt = want[1][:, 1:]
+    tie_free = ((nxt - want[1][:, :-1] > 2e-6 * nxt.abs())
+                | ~torch.isfinite(nxt)).all(1)
+    for i in (0, 2):
+        assert torch.equal(got[i][tie_free], want[i][tie_free])
+    torch.cuda.synchronize()
+    assert {kk: ops.LAUNCHES[kk] - start[kk] for kk in start} == {
+        "gather_distance": 0, "lsh_hash": 0, "fused_hop_l2": 0,
+        "fused_hop_pq": 1, "pq_adc": 1, "l2_distance": 0}
+
+
+@pytest.mark.parametrize("b,c,d", [(8, 8, 16), (37, 203, 64),
+                                   (1000, 777, 768), (130, 127, 33),
+                                   (1, 5, 768)])
+def test_l2_distance_matches_plain(dev, b, c, d):
+    rng = np.random.default_rng(b + c + d)
+    q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                        device=dev)
+    x = torch.as_tensor(rng.normal(size=(c, d)).astype(np.float32),
+                        device=dev)
+    torch.testing.assert_close(ops.l2_distance(q, x),
+                               ref.l2_distance_ref(q, x), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel", ["pq_adc", "fused_hop_pq"])
+def test_oversized_lut_raises(dev, kernel):
+    rng = np.random.default_rng(2)
+    luts, codes = _pq_tables(rng, 100, 2, 64, 256, dev)     # 64 KB LUT
+    ids = torch.zeros((2, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        if kernel == "pq_adc":
+            ops.pq_adc(luts, codes[ids.long()])
+        else:
+            ops.fused_hop_pq(luts, codes, ids, ids, ids.float(), ids.bool())
+
+
+def test_fused_and_unfused_pq_search_bit_identical(dev):
+    from repro_torch.core import pq
+    from repro_torch.core.beam_search import SearchSpec, beam_search
+    from repro_torch.kernels.fused_hop import FusedPQHop
+    rng = np.random.default_rng(5)
+    n, d, b = 3000, 32, 64
+    vec = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                          device=dev)
+    cb = pq.train_pq(torch.Generator().manual_seed(0), vec, 8, device=dev)
+    codes = pq.encode(cb, vec)
+    adj = rng.integers(0, n, size=(n, 16)).astype(np.int32)
+    adj[rng.random((n, 16)) < 0.2] = -1
+    adj = torch.as_tensor(adj, device=dev)
+    q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
+                        device=dev)
+    starts = torch.full((b, 3), -1, dtype=torch.int32, device=dev)
+    starts[:, 1:] = torch.as_tensor(rng.integers(0, n, size=(b, 2)),
+                                    dtype=torch.int32, device=dev)
+    res = [beam_search(adj, q, starts,
+                       SearchSpec(16, 16, 64, record_scored=True,
+                                  hop_backend=hb), dist)
+           for hb, dist in (("unfused", pq.adc_dist_fn(cb, codes)),
+                            ("fused", FusedPQHop(cb, codes)))]
+    for fld in ["ids", "dists", "hops", "ndists", "trace", "scored",
+                "converged"]:
+        assert torch.equal(getattr(res[0], fld), getattr(res[1], fld)), fld
+
+
+def test_pq_database_on_the_card_matches_the_cpu(dev):
+    """PQ traversal on the card and on the CPU over one graph: fused and
+    unfused ids equal on the card, recall@10 within 1 point of the CPU."""
+    from repro_torch import db
+    from repro_torch.core.engine import brute_force_knn, recall_at_k
+    from repro_torch.core.vamana import VamanaParams, build_vamana
+    rng = np.random.default_rng(7)
+    centers = rng.normal(size=(8, 16)).astype(np.float32) * 4
+    vec = (centers[rng.integers(0, 8, 1200)]
+           + rng.normal(size=(1200, 16))).astype(np.float32)
+    graph = build_vamana(vec, VamanaParams(max_degree=16, build_beam=32),
+                         device=dev)
+    qs = (centers[rng.integers(0, 8, 64)]
+          + 0.5 * rng.normal(size=(64, 16))).astype(np.float32)
+    truth = brute_force_knn(vec, qs, 10)
+    ids = {}
+    for where, hb in (("cuda", "unfused"), ("cuda", "fused"),
+                      ("cpu", "unfused")):
+        d = db.create(db.IndexSpec(degree=16, build_beam=32, pq=4,
+                                   hop_backend=hb), vec, prebuilt=graph,
+                      device=where)
+        d.search(qs, k=10)
+        ids[where, hb], _, stats = d.search(qs, k=10)
+        assert stats.used.all()
+    np.testing.assert_array_equal(ids["cuda", "fused"], ids["cuda", "unfused"])
+    assert abs(recall_at_k(ids["cuda", "unfused"], truth)
+               - recall_at_k(ids["cpu", "unfused"], truth)) <= 0.01

@@ -93,11 +93,15 @@ def test_create_defaults_to_the_card():
         tdb.create(tdb.IndexSpec(degree=4, build_beam=8), vec)
 
 
-@pytest.mark.parametrize("mode,hop_backend", [("catapult", "unfused"),
-                                              ("catapult", "fused"),
-                                              ("diskann", "unfused")])
+@pytest.mark.parametrize("mode,hop_backend,pq", [
+    pytest.param(mode, hb, pq, id=f"{mode}-{hb}" + ("-pq" if pq else ""))
+    for mode, hb, pq in [
+        ("catapult", "unfused", None), ("catapult", "fused", None),
+        ("diskann", "unfused", None), ("catapult", "unfused", 4),
+        ("catapult", "fused", 4), ("diskann", "unfused", 4),
+        ("diskann", "fused", 4)]])
 def test_chip_smoke_launch_accounting(corpus, queries, graph, monkeypatch,
-                                      mode, hop_backend):
+                                      mode, hop_backend, pq):
     """``chip_smoke.expected_launches`` (what the card run holds each
     path's kernel counts to) against the wrapper calls a search makes."""
     import importlib.util
@@ -113,18 +117,20 @@ def test_chip_smoke_launch_accounting(corpus, queries, graph, monkeypatch,
             return _fn(*args)
         monkeypatch.setattr(ops, name, wrapped)
     port = tdb.create(tdb.IndexSpec(mode=mode, hop_backend=hop_backend,
-                                    **SPEC), corpus[0], prebuilt=graph,
-                      device="cpu")
+                                    pq=pq, **SPEC), corpus[0],
+                      prebuilt=graph, device="cpu")
     iters = []
     for lo in (0, 24, 48):
         r = port.search(queries[lo: lo + 24], k=10)
         iters.append(int(r.stats.hops.max()))
-    assert calls == smoke.expected_launches(mode, hop_backend, iters)
+    assert calls == smoke.expected_launches(mode, hop_backend, iters,
+                                            pq=bool(pq))
 
 
 @pytest.mark.parametrize("build", [
     "build_vamana", "make_catapult_state", "make_lsh", "make_buckets",
-    "from_arrays", "catapult_state_from_numpy", "engine"])
+    "from_arrays", "catapult_state_from_numpy", "engine", "train_pq",
+    "pq_codebook_from_numpy"])
 def test_public_constructors_default_to_the_card(build):
     """Every public constructor of device state asks for the card when
     the caller names no device, and raises where there is none."""
@@ -133,6 +139,7 @@ def test_public_constructors_default_to_the_card(build):
     from repro_torch.core import catapult as tcat
     from repro_torch.core import engine as teng
     from repro_torch.core import lsh as tlsh
+    from repro_torch.core import pq as tpq
     from repro_torch.core import vamana as tvam
     vec = np.random.default_rng(0).normal(size=(50, 8)).astype(np.float32)
     arrays = tbk.to_arrays(tbk.make_buckets(4, 2, device="cpu"))
@@ -147,6 +154,9 @@ def test_public_constructors_default_to_the_card(build):
         "catapult_state_from_numpy": lambda: convert.catapult_state_from_numpy(
             vec[:4], arrays),
         "engine": lambda: teng.VectorSearchEngine(),
+        "train_pq": lambda: tpq.train_pq(gen, vec, 4),
+        "pq_codebook_from_numpy": lambda: convert.pq_codebook_from_numpy(
+            np.zeros((4, 8, 2), np.float32)),
     }
     with pytest.raises(RuntimeError, match="cuda"):
         calls[build]()
@@ -157,11 +167,18 @@ def test_public_constructors_default_to_the_card(build):
     ("adapt", object()), ("io", object()), ("ingest", object()),
     ("tiered", object())])
 def test_unported_spec_fields_raise_capability_error(field, value):
+    """Every field this port lacks raises; ``pq`` is ported on the RAM
+    tier and raises only with a tier that is not (through ``tier``)."""
     kw = {field: value}
+    if field == "pq":
+        assert tdb.IndexSpec(pq=value).pq == value
+        kw.update(tier="disk", path="unused.ctpl")
     if field == "tier":
         kw["path"] = "unused.ctpl"
-    with pytest.raises(tdb.CapabilityError, match="ROADMAP"):
+    with pytest.raises(tdb.CapabilityError, match="ROADMAP") as err:
         tdb.IndexSpec(**kw)
+    if field == "pq":
+        assert "IndexSpec.tier" in str(err.value)
 
 
 def test_spec_validation_matches_reference():
