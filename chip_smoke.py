@@ -12,9 +12,11 @@ then:
    over an N=1,000,000 x d=768 table (B=4096 lanes, C=64 candidates,
    L=16 beam, and the catapult init hop's C=41); ``pq_adc`` and
    ``fused_hop_pq`` over a (1,000,000, 8) int32 code table with
-   (4096, 8, 256) LUTs, the fused PQ hop also bit for bit against the
-   composed one; ``l2_distance`` at 4096 x 4096 x 768 and 1000 x 777,
-   beside ``torch.cdist``;
+   (4096, 8, 256) LUTs and again over (1,000,000, 96) codes with
+   (4096, 96, 256) LUTs (96 KB a lane), the fused PQ hop also bit for bit
+   against the composed one; ``l2_distance`` at 4096 x 4096 x 768 and
+   1000 x 777, beside ``torch.cdist``, its bound taken both for its
+   3xTF32 tensor-core route and for f32 outside the tensor cores;
 2. the main path: ``create(IndexSpec(), corpus)`` on the tripclick
    workload (20,000 x 24, 4,096 queries) — Vamana build plus catapult
    search on the card — replayed twice in batches of 256, beside a
@@ -25,7 +27,8 @@ then:
 3. deployment width: 1,000,000 x 768 vectors, degree 64, over a random
    regular graph, 4 batches of 4,096 queries under both hop backends, at
    full precision and with PQ (M=8, K=256; training, encoding and LUT
-   times recorded).
+   times recorded); then ``IndexSpec(pq=96)`` (96 KB LUTs) on a 20,000
+   x 768 slice under both hop backends, whose ids must be equal.
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
@@ -50,12 +53,15 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12       # H100 SXM TF32 tensor cores, dense
 RTOL = 1e-5                    # 768-term sums added in different orders
 RTOL_PQ = 1e-6                 # eight-term ADC sums in different orders
 TOL_L2 = 1e-4                  # expanded against direct form (rtol, atol)
 N, D, B, C, L = 1_000_000, 768, 4096, 64, 16
 C_INIT = 41                    # bucket_capacity + 1 catapult starts
 PQ_M, PQ_K = 8, 256            # default_pq_subspaces(768), 8-bit codes
+PQ_M_WIDE = 96                 # a 96 KB LUT a lane, beyond 48 KB of shared
+                               # memory without the opt-in
 SPIN_CYCLES = 2 ** 25          # ~17 ms at 1.98 GHz, before each timed run
 
 
@@ -99,8 +105,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return ev[1].elapsed_time(ev[2]) / reps
 
 
-def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_FP32_FLOPS
+def bound(n_bytes: float, n_flops: float,
+          peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -290,44 +297,58 @@ def phase_kernels(vectors, gen, dev) -> dict:
     return out
 
 
-def phase_pq_kernels(gen, dev) -> dict:
-    """pq_adc and fused_hop_pq against their plain versions at deployment
-    shapes: a (1,000,000, 8) int32 code table, (4096, 8, 256) LUTs."""
+def check_pq_hops(luts, codes, gen, dev, tag: str):
+    """fused_hop_pq at the traversal hop (C=64) and the init hop (C=41):
+    bit for bit the composed PQ hop, and the plain version's n_fresh,
+    distances and (on tie-free lanes) ids/exp.  Returns the hop inputs by
+    C, the largest distance error and the mismatched lanes by C."""
     from repro_torch.kernels import ops, ref
-    codes = torch.randint(0, PQ_K, (N, PQ_M), generator=gen, device=dev,
-                          dtype=torch.int32)
-    luts = torch.rand((B, PQ_M, PQ_K), generator=gen, device=dev)
-    out, errs, mismatched = {}, [], {}
-    hop_inputs_by_c = {c: pq_hop_inputs(gen, luts, codes, c, L, dev)
-                       for c in (C, C_INIT)}
-    for c, (cand, bids, bd, bexp) in hop_inputs_by_c.items():
+    inputs, errs, mismatched = {}, [], {}
+    for c in (C, C_INIT):
+        cand, bids, bd, bexp = inputs[c] = pq_hop_inputs(gen, luts, codes,
+                                                         c, L, dev)
+        name = f"fused_hop_pq {tag} C={c}"
         got = ops.fused_hop_pq(luts, codes, cand, bids, bd, bexp)
         # bit for bit the composed PQ hop: the plain merge over the
-        # pq_adc kernel's sums (both kernels add through row_adc)
+        # pq_adc kernel's sums (both kernels add in row_adc's m order)
         adc = ops.pq_adc(luts, codes[cand.clamp(min=0).long()])
         composed = ref._merge_ref(cand, torch.where(cand < 0, torch.inf, adc),
                                   bids, bd, bexp)
         for g, w, what in zip(got, composed, ("ids", "dists", "exp",
                                               "n_fresh")):
-            check(torch.equal(g, w), f"fused_hop_pq C={c}: {what} differ "
-                                     f"from the composed PQ hop's")
+            check(torch.equal(g, w), f"{name}: {what} differ from the "
+                                     f"composed PQ hop's")
         want = ref.fused_hop_pq_ref(luts, codes, cand, bids, bd, bexp)
-        errs.append(dist_agreement(got[1], want[1], f"fused_hop_pq C={c}",
-                                   RTOL_PQ))
+        errs.append(dist_agreement(got[1], want[1], name, RTOL_PQ))
         check(torch.equal(got[3], want[3]),
-              f"fused_hop_pq C={c}: n_fresh differs from the plain version")
+              f"{name}: n_fresh differs from the plain version")
         tie_free = tie_free_lanes(ref.fused_hop_pq_ref,
                                   (luts, codes, cand, bids, bd, bexp),
                                   RTOL_PQ)
         lanes = ((got[0] != want[0]) | (got[2] != want[2])).any(1)
         mismatched[c] = int(lanes.sum())
         n_bad = int((lanes & tie_free).sum())
-        print(f"fused_hop_pq C={c}: ids/exp differ from the plain version on "
+        print(f"{name}: ids/exp differ from the plain version on "
               f"{mismatched[c]} of {B} lanes, {n_bad} of them among the "
               f"{int(tie_free.sum())} tie-free lanes; max |err| "
               f"{errs[-1]:.3g}")
-        check(n_bad == 0, f"fused_hop_pq C={c}: ids/exp differ from the "
-                          f"plain version on {n_bad} tie-free lanes")
+        check(n_bad == 0, f"{name}: ids/exp differ from the plain version "
+                          f"on {n_bad} tie-free lanes")
+    return inputs, max(errs), mismatched
+
+
+def phase_pq_kernels(gen, dev) -> dict:
+    """pq_adc and fused_hop_pq against their plain versions at deployment
+    shapes: a (1,000,000, 8) int32 code table, (4096, 8, 256) LUTs; then
+    the same checks with M=96 ((1,000,000, 96) codes, (4096, 96, 256)
+    LUTs: 96 KB a lane)."""
+    from repro_torch.kernels import ops, ref
+    codes = torch.randint(0, PQ_K, (N, PQ_M), generator=gen, device=dev,
+                          dtype=torch.int32)
+    luts = torch.rand((B, PQ_M, PQ_K), generator=gen, device=dev)
+    out = {}
+    hop_inputs_by_c, hop_err, mismatched = check_pq_hops(
+        luts, codes, gen, dev, f"M={PQ_M}")
 
     cand, bids, bd, bexp = hop_inputs_by_c[C]
     valid = cand >= 0
@@ -353,7 +374,7 @@ def phase_pq_kernels(gen, dev) -> dict:
                  + 2 * B * L * (4 + 4 + 1) + B * 4)
     b_ms, b_by = bound(hop_bytes, float(n_valid * PQ_M))
     out["fused_hop_pq"] = dict(
-        max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+        max_abs_err=hop_err, bound_ms=b_ms, bound_by=b_by,
         ms=cuda_ms(lambda: ops.fused_hop_pq(luts, codes, cand, bids, bd,
                                             bexp)),
         plain_ms=cuda_ms(lambda: ref.fused_hop_pq_ref(luts, codes, cand, bids,
@@ -364,10 +385,36 @@ def phase_pq_kernels(gen, dev) -> dict:
         tolerance=f"rtol {RTOL_PQ}; ids/exp equal except near-ties; equal "
                   f"to the composed PQ hop bit for bit",
         library_note="no single PyTorch call computes a fused hop")
+    del codes, luts, rows
+
+    # M=96: LUTs beyond 48 KB, which pq_adc stages with the opt-in and
+    # fused_hop_pq does not stage at all.  Its own generator leaves the
+    # draws of the later phases as they were without it.
+    wide = torch.Generator(device=dev).manual_seed(PQ_M_WIDE)
+    codes = torch.randint(0, PQ_K, (N, PQ_M_WIDE), generator=wide,
+                          device=dev, dtype=torch.int32)
+    luts = torch.rand((B, PQ_M_WIDE, PQ_K), generator=wide, device=dev)
+    hop_inputs_by_c, hop_err, mismatched = check_pq_hops(
+        luts, codes, wide, dev, f"M={PQ_M_WIDE}")
+    cand, bids, bd, bexp = hop_inputs_by_c[C]
+    rows = codes[cand.clamp(min=0).long()].contiguous()
+    err = dist_agreement(ops.pq_adc(luts, rows), ref.pq_adc_ref(luts, rows),
+                         f"pq_adc M={PQ_M_WIDE}", RTOL_PQ)
+    shape = f"N={N} M={PQ_M_WIDE} K={PQ_K} B={B} C={C} L={L}"
+    out["pq_adc"]["wide"] = dict(
+        shape=shape, max_abs_err=err,
+        ms=cuda_ms(lambda: ops.pq_adc(luts, rows)))
+    out["fused_hop_pq"]["wide"] = dict(
+        shape=shape + f" (and C={C_INIT} checked)", max_abs_err=hop_err,
+        mismatched_lanes=mismatched,
+        ms=cuda_ms(lambda: ops.fused_hop_pq(luts, codes, cand, bids, bd,
+                                            bexp)))
     for name in ("pq_adc", "fused_hop_pq"):
         r = out[name]
+        r["max_abs_err"] = max(r["max_abs_err"], r["wide"]["max_abs_err"])
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}); at "
+              f"M={PQ_M_WIDE} {r['wide']['ms']:.4f} ms")
     return out
 
 
@@ -384,18 +431,23 @@ def phase_l2_distance(vectors, dev) -> dict:
               f"l2_distance {b}x{c}: beyond rtol/atol {TOL_L2}")
         errs.append(float(err.max()))
     q, x = vectors[:B], vectors[B: 2 * B]
-    b_ms, b_by = bound((2 * B * D + B * B) * 4, 2.0 * B * B * D)
+    n_bytes, n_flops = (2 * B * D + B * B) * 4, 2.0 * B * B * D
+    # the kernel's route: three TF32 products on the tensor cores
+    b_ms, b_by = bound(n_bytes, 3 * n_flops, PEAK_TF32_FLOPS)
     out = dict(
         max_abs_err=max(errs), bound_ms=b_ms, bound_by=b_by,
+        bound_f32_ms=bound(n_bytes, n_flops)[0],
         ms=cuda_ms(lambda: ops.l2_distance(q, x)),
         plain_ms=cuda_ms(lambda: ref.l2_distance_ref(q, x), reps=5),
         library_ms=cuda_ms(lambda: torch.cdist(q, x).square()),
         shape=f"B={B} C={B} d={D} (and 1000x777 checked)",
-        tolerance=f"rtol and atol {TOL_L2} (expanded against direct form)",
+        tolerance=f"rtol and atol {TOL_L2} (expanded form in 3xTF32 "
+                  f"against the direct form in f32)",
         library_note="torch.cdist(q, x).square() with TF32 off")
     print(f"l2_distance: {out['ms']:.4f} ms (plain {out['plain_ms']:.4f} ms, "
           f"cdist {out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
-          f"by {b_by}); max |err| {out['max_abs_err']:.3g}")
+          f"by {b_by} in TF32, {out['bound_f32_ms']:.4f} ms in f32); max "
+          f"|err| {out['max_abs_err']:.3g}")
     return out
 
 
@@ -611,7 +663,8 @@ def phase_main_path(seed: int, dev) -> dict:
 def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
     """1,000,000 x 768 over a random regular graph of degree 64, 4 batches
     of 4,096 queries (beam 16, max_iters 64) under both hop backends, at
-    full precision and with PQ (M=8, K=256)."""
+    full precision and with PQ (M=8, K=256); then a small PQ twin with
+    M=96 (20,000 x 768, one batch of 256)."""
     from repro_torch import db
     from repro_torch.core import buckets as bk
     from repro_torch.core import pq as pq_mod
@@ -701,6 +754,27 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
                 out[f"publish_host_ms_b{nb}"] = \
                     (time.perf_counter() - t0) * 1e3 / 3
         del d
+
+    # IndexSpec(pq=96): a 96 KB LUT a query, on a 20,000-row slice of the
+    # table over its own random regular graph (degree 32), one batch of
+    # 256 under both backends
+    n96 = 20_000
+    graph96 = (_random_regular_init(n96, 32, rng), medoid_index(vec_np[:n96]))
+    for hb in ("unfused", "fused"):
+        def drive96(hb=hb):
+            d = db.create(db.IndexSpec(dim=D, degree=32, pq=PQ_M_WIDE,
+                                       hop_backend=hb), vec_np[:n96],
+                          prebuilt=graph96)
+            return d.search(queries[:256], k=10, beam_width=16, max_iters=64)
+
+        name = f"pq{PQ_M_WIDE}_{hb}"
+        r, paths[name] = counted(drive96)
+        want = expected_launches("catapult", hb, [int(r.stats.hops.max())],
+                                 pq=True)
+        check(paths[name] == want, f"{name} (d={D}, {n96} rows): launched "
+                                   f"{paths[name]}, its batch implies {want}")
+        ids[name] = r.ids
+        out[name] = dict(rows=n96, mean_hops=float(r.stats.hops.mean()))
     out["launches"] = paths
     out["max_memory_allocated_gb"] = max(peak["unfused"], peak["fused"])
     out["pq_max_memory_allocated_gb"] = max(peak["pq_unfused"],
@@ -715,6 +789,9 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
           "deployment width: fused and unfused ids differ")
     check(np.array_equal(ids["pq_unfused"], ids["pq_fused"]),
           "deployment width: PQ fused and unfused ids differ")
+    check(np.array_equal(ids[f"pq{PQ_M_WIDE}_unfused"],
+                         ids[f"pq{PQ_M_WIDE}_fused"]),
+          f"IndexSpec(pq={PQ_M_WIDE}): fused and unfused ids differ")
     return out
 
 
@@ -778,7 +855,9 @@ def main() -> int:
          "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
          "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"],
-         "library_ms": kernels[name].get("library_ms")}
+         "library_ms": kernels[name].get("library_ms"),
+         **({"bound_f32_ms": kernels[name]["bound_f32_ms"]}
+            if "bound_f32_ms" in kernels[name] else {})}
         for name, (src, tpu) in sources.items()]}
     if args.out:
         ptxas = {p.stem: p.read_text() for p in build_dir.glob("*.log")}

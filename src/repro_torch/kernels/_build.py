@@ -40,7 +40,7 @@ SIGNATURES = {
         "fused_hop_l2_smem_bytes": [_I, _I]},
     "fused_hop_pq": {
         "launch_fused_hop_pq": [_P] * 10 + [_I] * 6 + [_P],
-        "fused_hop_pq_smem_bytes": [_I] * 4},
+        "fused_hop_pq_smem_bytes": [_I, _I]},
     "pq_adc": {"launch_pq_adc": [_P, _P, _P, _I, _I, _I, _I, _P],
                "pq_adc_smem_bytes": [_I, _I]},
     "l2_distance": {"launch_l2_distance": [_P, _P, _P, _I, _I, _I, _P]},

@@ -1,11 +1,12 @@
-// Shared ADC (asymmetric distance) sum for every PQ distance the port
+// Shared ADC (asymmetric distance) sums for every PQ distance the port
 // computes on the card (pq_adc.cu and fused_hop_pq.cu).
 //
-// One thread sums one candidate's M lookup-table entries
-// lut[m * K + code[m]] for m = 0, 1, ..., M-1, in that order.  Because
-// both kernels call this one function, every addition happens in the
-// same order in both, so the composed PQ hop (pq_adc + torch merge) and
-// the fused PQ hop return bit-identical beams on the card, as row_sqdist
+// Both functions here add one candidate's M lookup-table entries
+// lut[m * K + code[m]] into an f32 accumulator that starts at 0, for
+// m = 0, 1, ..., M-1, in that order; they differ only in how the codes
+// are loaded.  Because the additions happen in the same order
+// everywhere, the composed PQ hop (pq_adc + torch merge) and the fused
+// PQ hop return bit-identical beams on the card, as row_sqdist
 // (sqdist.cuh) makes them for L2.  The plain version (ref.pq_adc_ref)
 // adds in the same m order.
 //
@@ -15,10 +16,30 @@
 
 #include <cuda_runtime.h>
 
+// Codes one at a time; the LUT in shared memory (pq_adc) or in device
+// memory (fused_hop_pq at any M)
 __device__ __forceinline__ float row_adc(const float* __restrict__ lut,
                                          const int* __restrict__ code,
                                          int m, int k) {
     float acc = 0.0f;
     for (int i = 0; i < m; ++i) acc += lut[i * k + __ldg(code + i)];
+    return acc;
+}
+
+// fused_hop_pq, M = kM fixed: codes already in registers, all kM LUT
+// loads independent, so they are in flight together
+template <int kM>
+__device__ __forceinline__ float row_adc_fixed(const float* __restrict__ lut,
+                                               const int4 (&v)[kM / 4],
+                                               int k) {
+    float acc = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kM / 4; ++q) {
+        const float* p = lut + 4 * q * k;
+        acc += __ldg(p + v[q].x);
+        acc += __ldg(p + k + v[q].y);
+        acc += __ldg(p + 2 * k + v[q].z);
+        acc += __ldg(p + 3 * k + v[q].w);
+    }
     return acc;
 }

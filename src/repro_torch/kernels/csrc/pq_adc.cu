@@ -19,11 +19,14 @@
 // j sums candidate j's M entries through the shared row_adc, a direct
 // shared-memory gather.  The TPU's one-hot MXU trick is not carried
 // over: Hopper's shared memory serves scattered reads at full rate
-// (bank conflicts aside), so the gather is the natural form.  The
-// wrapper keeps M*K*4 within the 48 KB of static-size shared memory.
+// (bank conflicts aside), so the gather is the natural form.  A LUT
+// above 48 KB (M*K*4, e.g. M=96, K=256: 96 KB) takes the dynamic shared
+// memory opt-in, up to the 227 KB a block can have; the wrapper raises
+// above that.
 #include <cuda_runtime.h>
 
 #include "adc.cuh"
+#include "smem_optin.cuh"
 
 namespace {
 
@@ -51,7 +54,11 @@ extern "C" size_t pq_adc_smem_bytes(int m, int k) {
 
 extern "C" int launch_pq_adc(const float* luts, const int* codes, float* out,
                              int b, int c, int m, int k, void* stream) {
-    pq_adc_kernel<<<(unsigned)b, kThreads, pq_adc_smem_bytes(m, k),
-                    (cudaStream_t)stream>>>(luts, codes, out, c, m, k);
+    static size_t granted[64] = {};
+    const size_t smem = pq_adc_smem_bytes(m, k);
+    const cudaError_t err = smem_optin(pq_adc_kernel, smem, granted);
+    if (err != cudaSuccess) return (int)err;
+    pq_adc_kernel<<<(unsigned)b, kThreads, smem, (cudaStream_t)stream>>>(
+        luts, codes, out, c, m, k);
     return (int)cudaGetLastError();
 }

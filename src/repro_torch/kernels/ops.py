@@ -29,11 +29,14 @@ LAUNCHES = {"gather_distance": 0, "lsh_hash": 0, "fused_hop_l2": 0,
 
 # bucket tables hold 2**L rows and codes are non-negative int32
 MAX_LSH_BITS = 30
-# the fused hops keep [beam | candidates] (and the PQ ones the lane's
-# (M, K) LUT) in static-size shared memory
+# the fused hops keep a lane's [beam | candidates] in shared memory
+# without the opt-in
 MAX_SMEM_BYTES = 48 * 1024
-# l2_distance tiles B in 64-row blocks along the grid's y dimension
-MAX_L2_ROWS = 65535 * 64
+# pq_adc stages the lane's (M, K) LUT with the opt-in, up to what one
+# block can have on an H100
+MAX_SMEM_OPTIN_BYTES = 232_448
+# l2_distance tiles B in 128-row blocks along the grid's y dimension
+MAX_L2_ROWS = 65535 * 128
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -49,10 +52,10 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_smem(nbytes: int, what: str) -> None:
-    if nbytes > MAX_SMEM_BYTES:
+def _check_smem(nbytes: int, what: str, limit: int = MAX_SMEM_BYTES) -> None:
+    if nbytes > limit:
         raise ValueError(f"{what} needs {nbytes} bytes of shared memory, "
-                         f"more than the kernel's {MAX_SMEM_BYTES}")
+                         f"more than the kernel's {limit}")
 
 
 def _on_card(device: torch.device) -> bool:
@@ -187,7 +190,8 @@ def pq_adc(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     if not _on_card(dev):
         return ref.pq_adc_ref(luts, codes)
     lib = library("pq_adc")
-    _check_smem(lib.pq_adc_smem_bytes(m, k), f"an (M, K) = {(m, k)} LUT")
+    _check_smem(lib.pq_adc_smem_bytes(m, k), f"an (M, K) = {(m, k)} LUT",
+                MAX_SMEM_OPTIN_BYTES)
     out = torch.empty((b, c), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
@@ -227,8 +231,8 @@ def fused_hop_pq(luts, codes, cand_ids, beam_ids, beam_dists, beam_exp):
         return ref.fused_hop_pq_ref(luts, codes, cand_ids, beam_ids,
                                     beam_dists, beam_exp)
     lib = library("fused_hop_pq")
-    _check_smem(lib.fused_hop_pq_smem_bytes(c, l, m, k),
-                f"an (M, K) = {(m, k)} LUT beside C + L = {c + l} entries")
+    _check_smem(lib.fused_hop_pq_smem_bytes(c, l),
+                f"C + L = {c + l} entries")
     out_ids = torch.empty((b, l), dtype=torch.int32, device=dev)
     out_d = torch.empty((b, l), dtype=torch.float32, device=dev)
     out_exp = torch.empty((b, l), dtype=torch.bool, device=dev)

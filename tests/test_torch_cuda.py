@@ -183,8 +183,14 @@ def test_database_on_the_card_matches_the_cpu(dev):
                                          (100000, 512, 64, 16, 8, 256),
                                          (100000, 512, 41, 16, 8, 256),
                                          (300, 5, 1, 2, 4, 16),
-                                         (300, 3, 200, 40, 16, 64)])
+                                         (300, 3, 200, 40, 16, 64),
+                                         (300, 7, 37, 9, 5, 32),
+                                         (20000, 256, 64, 16, 64, 256),
+                                         (20000, 256, 41, 16, 96, 256)])
 def test_pq_kernels_match_plain(dev, n, b, c, l, m, k):
+    """Both PQ kernels against their plain versions, and the fused hop bit
+    for bit against the composed one; (64, 256) and (96, 256) are LUTs of
+    64 and 96 KB, beyond 48 KB of shared memory without the opt-in."""
     rng = np.random.default_rng(n + c + m)
     luts, codes = _pq_tables(rng, n, b, m, k, dev)
     _, cand, _, bids, _, _ = _hop_inputs(rng, n, b, c, l, 4)
@@ -222,7 +228,7 @@ def test_pq_kernels_match_plain(dev, n, b, c, l, m, k):
 
 @pytest.mark.parametrize("b,c,d", [(8, 8, 16), (37, 203, 64),
                                    (1000, 777, 768), (130, 127, 33),
-                                   (1, 5, 768)])
+                                   (1, 5, 768), (300, 260, 100)])
 def test_l2_distance_matches_plain(dev, b, c, d):
     rng = np.random.default_rng(b + c + d)
     q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32),
@@ -234,16 +240,59 @@ def test_l2_distance_matches_plain(dev, b, c, d):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("kernel", ["pq_adc", "fused_hop_pq"])
-def test_oversized_lut_raises(dev, kernel):
+def test_pq_hop_ties_break_like_a_stable_sort(dev):
+    """LUT entries of 0, 1 and 2 make most ADC sums tie exactly: the fused
+    hop equals the plain version (a stable argsort) bit for bit."""
+    rng = np.random.default_rng(9)
+    n, b, c, l, m, k = 5000, 300, 64, 16, 8, 16
+    luts = torch.as_tensor(rng.integers(0, 3, (b, m, k)).astype(np.float32),
+                           device=dev)
+    codes = torch.as_tensor(rng.integers(0, k, (n, m)).astype(np.int32),
+                            device=dev)
+    _, cand, _, bids, _, _ = _hop_inputs(rng, n, b, c, l, 4)
+    cand, bids = cand.to(dev), bids.to(dev)
+    bd = torch.where(bids < 0, torch.inf, ref.pq_adc_ref(
+        luts, codes[bids.clamp(min=0).long()]))
+    bd, order = torch.sort(bd, dim=1, stable=True)
+    bids = bids.gather(1, order).contiguous()
+    bexp = (bids < 0) | torch.as_tensor(rng.random((b, l)) < 0.5, device=dev)
+    got = ops.fused_hop_pq(luts, codes, cand, bids, bd.contiguous(), bexp)
+    want = ref.fused_hop_pq_ref(luts, codes, cand, bids, bd.contiguous(),
+                                bexp)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_oversized_lut_raises(dev):
+    """pq_adc stages the LUT: above the 227 KB a block can have it raises,
+    naming the limit.  fused_hop_pq stages no LUT and takes the same one."""
     rng = np.random.default_rng(2)
-    luts, codes = _pq_tables(rng, 100, 2, 64, 256, dev)     # 64 KB LUT
+    luts, codes = _pq_tables(rng, 100, 2, 256, 256, dev)    # 256 KB LUT
     ids = torch.zeros((2, 4), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
-        if kernel == "pq_adc":
-            ops.pq_adc(luts, codes[ids.long()])
-        else:
-            ops.fused_hop_pq(luts, codes, ids, ids, ids.float(), ids.bool())
+    with pytest.raises(ValueError, match=f"shared memory.*"
+                                         f"{ops.MAX_SMEM_OPTIN_BYTES}"):
+        ops.pq_adc(luts, codes[ids.long()])
+    cand = torch.as_tensor(rng.integers(-1, 100, (2, 4)), dtype=torch.int32,
+                           device=dev)
+    beam = (torch.full((2, 3), -1, dtype=torch.int32, device=dev),
+            torch.full((2, 3), torch.inf, device=dev),
+            torch.ones((2, 3), dtype=torch.bool, device=dev))
+    got = ops.fused_hop_pq(luts, codes, cand, *beam)
+    for g, w in zip(got, ref.fused_hop_pq_ref(luts, codes, cand, *beam)):
+        assert torch.equal(g, w)
+
+
+def test_l2_distance_unaligned_inputs(dev):
+    """Bases off 16 bytes stage with 4-byte copies: same answer."""
+    rng = np.random.default_rng(4)
+    q = torch.as_tensor(rng.normal(size=(70 * 64 + 1,)).astype(np.float32),
+                        device=dev)[1:].view(70, 64)
+    x = torch.as_tensor(rng.normal(size=(90 * 64 + 3,)).astype(np.float32),
+                        device=dev)[3:].view(90, 64)
+    assert q.data_ptr() % 16 and x.data_ptr() % 16
+    torch.testing.assert_close(ops.l2_distance(q, x),
+                               ref.l2_distance_ref(q, x), rtol=1e-4,
+                               atol=1e-4)
 
 
 def test_fused_and_unfused_pq_search_bit_identical(dev):
@@ -298,6 +347,35 @@ def test_pq_database_on_the_card_matches_the_cpu(dev):
         d.search(qs, k=10)
         ids[where, hb], _, stats = d.search(qs, k=10)
         assert stats.used.all()
+    np.testing.assert_array_equal(ids["cuda", "fused"], ids["cuda", "unfused"])
+    assert abs(recall_at_k(ids["cuda", "unfused"], truth)
+               - recall_at_k(ids["cpu", "unfused"], truth)) <= 0.01
+
+
+def test_pq96_database_on_the_card_matches_the_cpu(dev):
+    """IndexSpec(pq=96) at d=768 (a 96 KB LUT a query) over a random
+    regular graph: fused and unfused ids equal on the card, recall@10
+    within 1 point of the CPU twin."""
+    from repro_torch import db
+    from repro_torch.core.engine import brute_force_knn, recall_at_k
+    from repro_torch.core.vamana import _random_regular_init, medoid_index
+    rng = np.random.default_rng(13)
+    n, d = 2000, 768
+    centers = rng.normal(size=(16, d)).astype(np.float32)
+    vec = (centers[rng.integers(0, 16, n)]
+           + 0.5 * rng.normal(size=(n, d))).astype(np.float32)
+    qs = (centers[rng.integers(0, 16, 64)]
+          + 0.5 * rng.normal(size=(64, d))).astype(np.float32)
+    graph = (_random_regular_init(n, 32, rng), medoid_index(vec))
+    truth = brute_force_knn(vec, qs, 10)
+    ids = {}
+    for where, hb in (("cuda", "unfused"), ("cuda", "fused"),
+                      ("cpu", "unfused")):
+        d96 = db.create(db.IndexSpec(dim=d, degree=32, pq=96,
+                                     hop_backend=hb), vec, prebuilt=graph,
+                        device=where)
+        d96.search(qs, k=10)
+        ids[where, hb] = d96.search(qs, k=10).ids
     np.testing.assert_array_equal(ids["cuda", "fused"], ids["cuda", "unfused"])
     assert abs(recall_at_k(ids["cuda", "unfused"], truth)
                - recall_at_k(ids["cpu", "unfused"], truth)) <= 0.01

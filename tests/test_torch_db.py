@@ -225,7 +225,7 @@ def test_unported_database_methods_raise(corpus, graph, op):
 
 def test_port_imports_neither_jax_nor_the_reference():
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "kernel_times.py"]
     assert len(files) > 10
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):

@@ -171,6 +171,62 @@ def test_fused_hop_pq_plain_matches_jax(n, b, c, l, m, k):
             np.testing.assert_array_equal(g, w, err_msg=name)
 
 
+def test_large_codebook_matches_jax():
+    """M=64, K=256 at d=128: a 64 KB LUT a query, beyond the 48 KB of
+    shared memory a block has on the card without the opt-in.  With the
+    reference's codebook transplanted, codes, LUTs, ``pq_adc`` and the
+    fused PQ hop are held to the JAX package (its kernels in Pallas
+    interpret mode)."""
+    rng = np.random.default_rng(21)
+    n, d, m, b = 1500, 128, 64, 6
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    q = rng.normal(size=(b, d)).astype(np.float32)
+    cb = jpq.train_pq(jax.random.PRNGKey(1), jnp.asarray(x), m)
+    port = convert.pq_codebook_from_numpy(np.asarray(cb.centroids),
+                                          device="cpu")
+    codes = np.asarray(jpq.encode(cb, jnp.asarray(x)))
+    cents = np.asarray(cb.centroids)
+    d2 = ((x.reshape(n, m, 1, d // m) - cents[None]) ** 2).sum(-1)
+    ok = ~_near_tied(d2)
+    np.testing.assert_array_equal(
+        tpq.encode(port, torch.as_tensor(x)).numpy()[ok], codes[ok])
+    assert ok.mean() > 0.99
+
+    luts = np.stack([np.asarray(jpq.query_lut(cb, jnp.asarray(qq)))
+                     for qq in q])
+    assert luts.shape == (b, m, 256) and luts[0].nbytes > 48 * 1024
+    np.testing.assert_allclose(
+        tpq.query_luts(port, torch.as_tensor(q)).numpy(), luts, rtol=1e-6)
+
+    cand, bids, _, _ = _hop_state(rng, n, b, 24, 10)
+    rows = codes[np.maximum(cand, 0)]
+    want = np.stack([np.asarray(jops.pq_adc(jnp.asarray(luts[i]),
+                                            jnp.asarray(rows[i])))
+                     for i in range(b)])
+    np.testing.assert_allclose(ops.pq_adc(*_t(luts, rows)).numpy(), want,
+                               rtol=1e-6)
+
+    # a beam of true ADC distances, so candidates compete for its slots
+    sub = np.arange(m)
+    bd = luts[np.arange(b)[:, None, None], sub,
+              codes[np.maximum(bids, 0)]].sum(-1)
+    bd = np.where(bids < 0, np.inf, bd).astype(np.float32)
+    order = np.argsort(bd, axis=1, kind="stable")
+    bids, bd = (np.take_along_axis(bids, order, 1),
+                np.take_along_axis(bd, order, 1))
+    bexp = (bids < 0) | (rng.random(bids.shape) < 0.5)
+    got = ops.fused_hop_pq(*_t(luts, codes, cand, bids, bd, bexp))
+    want = jops.fused_hop_pq(*[jnp.asarray(a) for a in
+                               (luts, codes, cand, bids, bd, bexp)])
+    for name, g, w in zip(["ids", "dists", "exp", "nfresh"], got, want):
+        g, w = g.numpy(), np.asarray(w)
+        if name == "dists":
+            _assert_dists(g, w)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+    assert np.isfinite(got[1].numpy()).all()
+
+
 @pytest.mark.parametrize("b,c,d", [(8, 8, 16), (37, 203, 64),
                                    (128, 256, 128), (1, 5, 768),
                                    (130, 127, 96)])
