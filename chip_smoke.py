@@ -10,11 +10,13 @@ then:
    on the same inputs, timed with CUDA events beside its plain version
    and its bound: ``gather_distance``, ``fused_hop_l2`` and ``lsh_hash``
    over an N=1,000,000 x d=768 table (B=4096 lanes, C=64 candidates,
-   L=16 beam, and the catapult init hop's C=41); ``pq_adc`` and
-   ``fused_hop_pq`` over a (1,000,000, 8) int32 code table with
-   (4096, 8, 256) LUTs and again over (1,000,000, 96) codes with
-   (4096, 96, 256) LUTs (96 KB a lane), the fused PQ hop also bit for bit
-   against the composed one; ``l2_distance`` at 4096 x 4096 x 768 and
+   L=16 beam, and the catapult init hop's C=41), ``lsh_hash`` also at
+   the main path's B=256, d=24; ``pq_adc`` (by id over the code table, as
+   the search path calls it, and over gathered (B, C, M) rows, the two
+   bit for bit) and ``fused_hop_pq`` over a (1,000,000, 8) int32 code
+   table with (4096, 8, 256) LUTs and again over (1,000,000, 96) codes
+   with (4096, 96, 256) LUTs (96 KB a lane), the fused PQ hop also bit
+   for bit against the composed one; ``l2_distance`` at 4096 x 4096 x 768 and
    1000 x 777, beside ``torch.cdist``, its bound taken both for its
    3xTF32 tensor-core route and for f32 outside the tensor cores;
 2. the main path: ``create(IndexSpec(), corpus)`` on the tripclick
@@ -62,6 +64,7 @@ C_INIT = 41                    # bucket_capacity + 1 catapult starts
 PQ_M, PQ_K = 8, 256            # default_pq_subspaces(768), 8-bit codes
 PQ_M_WIDE = 96                 # a 96 KB LUT a lane, beyond 48 KB of shared
                                # memory without the opt-in
+LSH_TRIP = (256, 24, 8)        # the main path's lsh_hash: B, d, L
 SPIN_CYCLES = 2 ** 25          # ~17 ms at 1.98 GHz, before each timed run
 
 
@@ -155,8 +158,7 @@ def pq_hop_inputs(gen, luts, codes, c, l, dev):
     distances."""
     from repro_torch.kernels import ref
     cand, bids = hop_ids(gen, codes.shape[0], luts.shape[0], c, l, dev)
-    bd = torch.where(bids < 0, torch.inf, ref.pq_adc_ref(
-        luts, codes[bids.clamp(min=0).long()]))
+    bd = ref.pq_adc_ref(luts, codes, bids)
     return (cand, *sorted_beam(gen, bids, bd, dev))
 
 
@@ -263,38 +265,59 @@ def phase_kernels(vectors, gen, dev) -> dict:
         shape=f"N={N} d={D} B={B} C={C} L={L} (and C={C_INIT} checked)",
         tolerance=f"rtol {RTOL}; ids/exp equal except near-ties")
 
-    # lsh_hash: (B, d) queries, (8, d) hyperplanes
+    # lsh_hash: (B, d) queries, (8, d) hyperplanes; then the main path's
+    # tripclick shape, on a generator of its own so that the later
+    # phases draw as before
     planes = torch.randn((8, D), generator=gen, device=dev)
+    out["lsh_hash"] = check_lsh(q, planes, f"B={B} d={D} L=8")
+    trip = torch.Generator(device=dev).manual_seed(LSH_TRIP[1])
+    tq = torch.randn(LSH_TRIP[:2], generator=trip, device=dev)
+    tplanes = torch.randn((LSH_TRIP[2], LSH_TRIP[1]), generator=trip,
+                          device=dev)
+    r = out["lsh_hash"]["tripclick"] = check_lsh(
+        tq, tplanes, "B={} d={} L={}".format(*LSH_TRIP))
+    out["lsh_hash"]["max_abs_err"] = max(out["lsh_hash"]["max_abs_err"],
+                                         r["max_abs_err"])
+    for name, r in out.items():
+        print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+    r = out["lsh_hash"]["tripclick"]
+    print(f"lsh_hash at {r['shape']}: {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms)")
+    return out
+
+
+def check_lsh(q, planes, shape: str) -> dict:
+    """lsh_hash on (B, d) queries and (L, d) hyperplanes against its plain
+    version: every query is compared, and a bit may flip only where its
+    projection sits within rounding of 0.  Timed beside its bound."""
+    from repro_torch.kernels import ops, ref
+    b, d = q.shape
+    l = planes.shape[0]
     got = ops.lsh_hash(q, planes)
     want = ref.lsh_hash_ref(q, planes)
     proj = q.double() @ planes.double().T
     scale = q.double().norm(dim=1)[:, None] * planes.double().norm(dim=1)
-    near = proj.abs() <= RTOL * scale                            # (B, 8)
-    weights = 2 ** torch.arange(8, dtype=torch.int32, device=dev)
+    near = proj.abs() <= RTOL * scale                            # (B, L)
+    weights = 2 ** torch.arange(l, dtype=torch.int32, device=q.device)
     near_bits = (near.to(torch.int32) * weights).sum(1).to(torch.int32)
     diff = got ^ want
-    # every query is compared: a bit may flip only where its projection
-    # sits within rounding of 0
     check(not bool((diff & ~near_bits).any()),
-          "lsh_hash: a code bit differs from the plain version where its "
-          f"projection is farther than {RTOL}*|q|*|h| from 0")
+          f"lsh_hash {shape}: a code bit differs from the plain version "
+          f"where its projection is farther than {RTOL}*|q|*|h| from 0")
     n_diff = int((diff != 0).sum())
-    print(f"lsh_hash: {n_diff} of {B} codes differ from the plain version "
-          f"({int(near.any(1).sum())} queries have a projection near 0)")
-    b_ms, b_by = bound(q.numel() * 4 + planes.numel() * 4 + B * 4,
-                       2.0 * B * 8 * D)
-    out["lsh_hash"] = dict(
+    print(f"lsh_hash {shape}: {n_diff} of {b} codes differ from the plain "
+          f"version ({int(near.any(1).sum())} queries have a projection "
+          f"near 0)")
+    b_ms, b_by = bound((q.numel() + planes.numel() + b) * 4, 2.0 * b * l * d)
+    return dict(
         max_abs_err=float(n_diff), bound_ms=b_ms, bound_by=b_by,
         ms=cuda_ms(lambda: ops.lsh_hash(q, planes)),
         plain_ms=cuda_ms(lambda: ref.lsh_hash_ref(q, planes)),
         near_zero_queries=int(near.any(1).sum()), codes_differing=n_diff,
-        shape=f"B={B} d={D} L=8",
+        shape=shape,
         tolerance=f"bits equal where |proj| > {RTOL}*|q|*|h|; max_abs_err "
                   f"is the number of codes that differ")
-    for name, r in out.items():
-        print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
-              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
-    return out
 
 
 def check_pq_hops(luts, codes, gen, dev, tag: str):
@@ -310,10 +333,10 @@ def check_pq_hops(luts, codes, gen, dev, tag: str):
         name = f"fused_hop_pq {tag} C={c}"
         got = ops.fused_hop_pq(luts, codes, cand, bids, bd, bexp)
         # bit for bit the composed PQ hop: the plain merge over the
-        # pq_adc kernel's sums (both kernels add in row_adc's m order)
-        adc = ops.pq_adc(luts, codes[cand.clamp(min=0).long()])
-        composed = ref._merge_ref(cand, torch.where(cand < 0, torch.inf, adc),
-                                  bids, bd, bexp)
+        # pq_adc kernel's sums by id (both kernels add in row_adc's m
+        # order)
+        composed = ref._merge_ref(cand, ops.pq_adc(luts, codes, cand), bids,
+                                  bd, bexp)
         for g, w, what in zip(got, composed, ("ids", "dists", "exp",
                                               "n_fresh")):
             check(torch.equal(g, w), f"{name}: {what} differ from the "
@@ -337,11 +360,51 @@ def check_pq_hops(luts, codes, gen, dev, tag: str):
     return inputs, max(errs), mismatched
 
 
+def check_pq_adc(luts, codes, cand, tag: str, plain: bool) -> dict:
+    """pq_adc in both forms on one hop's candidates: by id over the (N, M)
+    table (the form the search path calls) and over the (B, C, M) rows
+    torch gathers.  The id form must equal the table form bit for bit
+    (+inf at the -1 ids) and both the plain version within RTOL_PQ.  Each
+    timed beside its bound: the ids, the distinct code rows (the gathered
+    rows for the table form) and the distinct LUT entries the codes touch,
+    read once, the (B, C) sums written once."""
+    from repro_torch.kernels import ops, ref
+    m = luts.shape[1]
+    valid = cand >= 0
+    rows = codes[cand.clamp(min=0).long()].contiguous()        # (B, C, M)
+    got = ops.pq_adc(luts, codes, cand)
+    table = ops.pq_adc(luts, rows)
+    check(torch.equal(got, torch.where(valid, table, torch.inf)),
+          f"pq_adc {tag}: the id form differs from the table form")
+    err = max(dist_agreement(got, ref.pq_adc_ref(luts, codes, cand),
+                             f"pq_adc {tag} by id", RTOL_PQ),
+              dist_agreement(table, ref.pq_adc_ref(luts, rows),
+                             f"pq_adc {tag} on rows", RTOL_PQ))
+    out_bytes = got.numel() * 4
+    ids_ms, ids_by = bound(cand.numel() * 4 + unique_rows(cand) * m * 4
+                           + lut_entries(luts, rows, valid) * 4 + out_bytes,
+                           float(int(valid.sum()) * m))
+    rows_ms, rows_by = bound(rows.numel() * 4 + out_bytes
+                             + lut_entries(luts, rows,
+                                           torch.ones_like(valid)) * 4,
+                             float(rows.numel()))
+    r = dict(max_abs_err=err, bound_ms=ids_ms, bound_by=ids_by,
+             ms=cuda_ms(lambda: ops.pq_adc(luts, codes, cand)),
+             rows_ms=cuda_ms(lambda: ops.pq_adc(luts, rows)),
+             rows_bound_ms=rows_ms, rows_bound_by=rows_by)
+    if plain:
+        r["plain_ms"] = cuda_ms(lambda: ref.pq_adc_ref(luts, codes, cand),
+                                reps=5)
+        r["rows_plain_ms"] = cuda_ms(lambda: ref.pq_adc_ref(luts, rows),
+                                     reps=5)
+    return r
+
+
 def phase_pq_kernels(gen, dev) -> dict:
-    """pq_adc and fused_hop_pq against their plain versions at deployment
-    shapes: a (1,000,000, 8) int32 code table, (4096, 8, 256) LUTs; then
-    the same checks with M=96 ((1,000,000, 96) codes, (4096, 96, 256)
-    LUTs: 96 KB a lane)."""
+    """pq_adc (both forms) and fused_hop_pq against their plain versions
+    at deployment shapes: a (1,000,000, 8) int32 code table, (4096, 8,
+    256) LUTs; then the same checks with M=96 ((1,000,000, 96) codes,
+    (4096, 96, 256) LUTs: 96 KB a lane)."""
     from repro_torch.kernels import ops, ref
     codes = torch.randint(0, PQ_K, (N, PQ_M), generator=gen, device=dev,
                           dtype=torch.int32)
@@ -351,28 +414,20 @@ def phase_pq_kernels(gen, dev) -> dict:
         luts, codes, gen, dev, f"M={PQ_M}")
 
     cand, bids, bd, bexp = hop_inputs_by_c[C]
-    valid = cand >= 0
-    rows = codes[cand.clamp(min=0).long()].contiguous()        # (B, C, M)
-    got = ops.pq_adc(luts, rows)
-    want = ref.pq_adc_ref(luts, rows)
-    err = dist_agreement(got, want, "pq_adc", RTOL_PQ)
-    everything = torch.ones_like(valid)
-    b_ms, b_by = bound(rows.numel() * 4
-                       + lut_entries(luts, rows, everything) * 4
-                       + got.numel() * 4, float(rows.numel()))
     out["pq_adc"] = dict(
-        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-        ms=cuda_ms(lambda: ops.pq_adc(luts, rows)),
-        plain_ms=cuda_ms(lambda: ref.pq_adc_ref(luts, rows), reps=5),
-        shape=f"B={B} C={C} M={PQ_M} K={PQ_K} (codes gathered to (B, C, M))",
-        tolerance=f"rtol {RTOL_PQ}",
+        **check_pq_adc(luts, codes, cand, f"M={PQ_M}", plain=True),
+        shape=f"N={N} M={PQ_M} K={PQ_K} B={B} C={C} by id (rows_*: the "
+              f"(B, C, M) rows torch gathers)",
+        tolerance=f"rtol {RTOL_PQ}; the id form equal to the table form "
+                  f"bit for bit",
         library_note="no single PyTorch call computes a batched LUT "
                      "gather-sum")
-    n_valid = int(valid.sum())
+    valid = cand >= 0
+    rows = codes[cand.clamp(min=0).long()]
     hop_bytes = (unique_rows(cand) * PQ_M * 4 + cand.numel() * 4
                  + lut_entries(luts, rows, valid) * 4
                  + 2 * B * L * (4 + 4 + 1) + B * 4)
-    b_ms, b_by = bound(hop_bytes, float(n_valid * PQ_M))
+    b_ms, b_by = bound(hop_bytes, float(int(valid.sum()) * PQ_M))
     out["fused_hop_pq"] = dict(
         max_abs_err=hop_err, bound_ms=b_ms, bound_by=b_by,
         ms=cuda_ms(lambda: ops.fused_hop_pq(luts, codes, cand, bids, bd,
@@ -387,9 +442,9 @@ def phase_pq_kernels(gen, dev) -> dict:
         library_note="no single PyTorch call computes a fused hop")
     del codes, luts, rows
 
-    # M=96: LUTs beyond 48 KB, which pq_adc stages with the opt-in and
-    # fused_hop_pq does not stage at all.  Its own generator leaves the
-    # draws of the later phases as they were without it.
+    # M=96: LUTs beyond 48 KB, which neither PQ kernel stages.  Its own
+    # generator leaves the draws of the later phases as they were
+    # without it.
     wide = torch.Generator(device=dev).manual_seed(PQ_M_WIDE)
     codes = torch.randint(0, PQ_K, (N, PQ_M_WIDE), generator=wide,
                           device=dev, dtype=torch.int32)
@@ -397,13 +452,10 @@ def phase_pq_kernels(gen, dev) -> dict:
     hop_inputs_by_c, hop_err, mismatched = check_pq_hops(
         luts, codes, wide, dev, f"M={PQ_M_WIDE}")
     cand, bids, bd, bexp = hop_inputs_by_c[C]
-    rows = codes[cand.clamp(min=0).long()].contiguous()
-    err = dist_agreement(ops.pq_adc(luts, rows), ref.pq_adc_ref(luts, rows),
-                         f"pq_adc M={PQ_M_WIDE}", RTOL_PQ)
     shape = f"N={N} M={PQ_M_WIDE} K={PQ_K} B={B} C={C} L={L}"
     out["pq_adc"]["wide"] = dict(
-        shape=shape, max_abs_err=err,
-        ms=cuda_ms(lambda: ops.pq_adc(luts, rows)))
+        **check_pq_adc(luts, codes, cand, f"M={PQ_M_WIDE}", plain=False),
+        shape=shape)
     out["fused_hop_pq"]["wide"] = dict(
         shape=shape + f" (and C={C_INIT} checked)", max_abs_err=hop_err,
         mismatched_lanes=mismatched,
@@ -415,6 +467,11 @@ def phase_pq_kernels(gen, dev) -> dict:
         print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}); at "
               f"M={PQ_M_WIDE} {r['wide']['ms']:.4f} ms")
+    for tag, r in ((f"M={PQ_M}", out["pq_adc"]),
+                   (f"M={PQ_M_WIDE}", out["pq_adc"]["wide"])):
+        print(f"pq_adc {tag}: by id {r['ms']:.4f} ms (bound "
+              f"{r['bound_ms']:.4f}), on gathered rows {r['rows_ms']:.4f} ms "
+              f"(bound {r['rows_bound_ms']:.4f})")
     return out
 
 

@@ -6,9 +6,15 @@
 Loads ``DIR/chip_smoke.py`` (default: this checkout) with ``DIR/src``
 first on the import path, builds that checkout's kernels, and runs its
 phase-1 functions on the inputs ``chip_smoke.py`` makes from the same
-seed: every kernel against its plain version, timed on the card.  Prints
-the card's name and power limit, then one JSON line ``{"root": ...,
-"ms": {kernel: device ms}}``; ``--out`` keeps every number.
+seed: every kernel against its plain version, timed on the card.  Then
+it times calls whose interface every checkout of the port has, so that
+two checkouts compare like with like where their phase 1 differ:
+``core.pq.ADCDist``'s call (the distance of an unfused PQ hop, its LUTs
+built beforehand) at M=8 and M=96 over a (1,000,000, M) code table and
+4,096 lanes of 64 ids, and ``ops.lsh_hash`` at the main path's tripclick
+shape (B=256, d=24, L=8).  Prints the card's name and power limit, then
+one JSON line ``{"root": ..., "ms": {kernel: device ms}, "shared": {call:
+device ms}}``; ``--out`` keeps every number.
 
 Two checkouts run in turns in one machine (A, B, B, A) compare two
 versions of the kernels on one card, e.g. a parent commit unpacked with
@@ -24,6 +30,29 @@ import sys
 from pathlib import Path
 
 import torch
+
+
+def shared_interface_ms(smoke, dev, seed: int) -> dict:
+    """Device ms of the calls named in the module docstring, on inputs
+    from a generator of their own."""
+    from repro_torch.core import pq
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    q = torch.randn((256, 24), generator=gen, device=dev)
+    planes = torch.randn((8, 24), generator=gen, device=dev)
+    out = {"lsh_hash_b256_d24_l8": smoke.cuda_ms(
+        lambda: ops.lsh_hash(q, planes))}
+    for m in (8, 96):
+        cb = pq.PQCodebook(torch.randn((m, 256, smoke.D // m), generator=gen,
+                                       device=dev))
+        codes = torch.randint(0, 256, (smoke.N, m), generator=gen,
+                              device=dev, dtype=torch.int32)
+        queries = torch.randn((smoke.B, smoke.D), generator=gen, device=dev)
+        ids = smoke.hop_ids(gen, smoke.N, smoke.B, smoke.C, smoke.L, dev)[0]
+        dist = pq.adc_dist_fn(cb, codes)
+        dist.luts(queries)                        # built once, then cached
+        out[f"adc_dist_m{m}"] = smoke.cuda_ms(lambda: dist(queries, ids))
+    return out
 
 
 def main() -> int:
@@ -63,14 +92,16 @@ def main() -> int:
     kernels = smoke.phase_kernels(vectors, gen, dev)
     kernels.update(smoke.phase_pq_kernels(gen, dev))
     kernels["l2_distance"] = smoke.phase_l2_distance(vectors, dev)
+    shared = shared_interface_ms(smoke, dev, args.seed)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
-            {"card": card, "root": str(root), "kernels": kernels}, indent=1,
-            default=str))
+            {"card": card, "root": str(root), "kernels": kernels,
+             "shared": shared}, indent=1, default=str))
     print(card)
     print(json.dumps({"root": str(root),
-                      "ms": {k: r["ms"] for k, r in kernels.items()}}))
+                      "ms": {k: r["ms"] for k, r in kernels.items()},
+                      "shared": shared}))
     return 0
 
 

@@ -175,9 +175,7 @@ class ADCDist:
         return self._luts
 
     def __call__(self, queries: torch.Tensor, ids: torch.Tensor):
-        rows = self.codes[ids.clamp(min=0).long()]        # (B, C, M)
-        d = ops.pq_adc(self.luts(queries), rows)
-        return torch.where(ids < 0, torch.inf, d)
+        return ops.pq_adc(self.luts(queries), self.codes, ids)
 
 
 def adc_dist_fn(cb: PQCodebook, codes: torch.Tensor) -> ADCDist:

@@ -41,13 +41,11 @@ SIGNATURES = {
     "fused_hop_pq": {
         "launch_fused_hop_pq": [_P] * 10 + [_I] * 6 + [_P],
         "fused_hop_pq_smem_bytes": [_I, _I]},
-    "pq_adc": {"launch_pq_adc": [_P, _P, _P, _I, _I, _I, _I, _P],
-               "pq_adc_smem_bytes": [_I, _I]},
+    "pq_adc": {"launch_pq_adc": [_P] * 4 + [_I] * 5 + [_P]},
     "l2_distance": {"launch_l2_distance": [_P, _P, _P, _I, _I, _I, _P]},
 }
 RESTYPES = {"fused_hop_l2_smem_bytes": ctypes.c_size_t,
-            "fused_hop_pq_smem_bytes": ctypes.c_size_t,
-            "pq_adc_smem_bytes": ctypes.c_size_t}
+            "fused_hop_pq_smem_bytes": ctypes.c_size_t}
 
 
 def find_nvcc() -> str:

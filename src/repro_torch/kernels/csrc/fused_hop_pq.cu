@@ -25,7 +25,8 @@
 //      ones are scored.
 //   2. Scoring.  At M=8 a thread loads the code rows of two candidates as
 //      four int4 (all in flight together, and during the dedup), marked
-//      to leave L2 first, then the 16 LUT entries of the fresh ones;
+//      to leave L2 first (adc.cuh), then the 16 LUT entries of the fresh
+//      ones;
 //      other M go through row_adc, pq_adc's own sum, a code at a time.
 //      LUT entries are read straight from device memory: the batch's
 //      32 MB of LUTs can stay in the 50 MB L2 across the hops of a
@@ -49,16 +50,6 @@ namespace {
 constexpr int kLanesPerBlock = 4;
 constexpr size_t kSmemLimit = 48 * 1024;     // without the opt-in
 
-// A code row is read once a hop: the load marks it first to leave L2,
-// before the LUT lines that every hop of the batch reads again.
-__device__ __forceinline__ int4 load_code_row(const int4* p,
-                                              uint64_t policy) {
-    int4 v;
-    asm("ld.global.nc.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;\n"
-        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p), "l"(policy));
-    return v;
-}
-
 // M = kM fixed and code rows 16-byte aligned: two candidates a round,
 // their code rows loaded before any of their LUT entries.  The first
 // round's code rows are in flight while the warp dedups; only fresh
@@ -67,9 +58,7 @@ template <int kM>
 __device__ __forceinline__ int dedup_and_score_fixed(
         const WarpHop& s, const float* __restrict__ lut,
         const int* __restrict__ codes, int n, int c, int l, int k, int t) {
-    uint64_t evict_first;
-    asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-        : "=l"(evict_first));
+    const uint64_t evict_first = evict_first_policy();
     int4 v[2][kM / 4];
     auto load = [&](int j0) {
 #pragma unroll

@@ -1,4 +1,4 @@
-// Dynamic shared memory above 48 KB (l2_distance.cu, pq_adc.cu).
+// Dynamic shared memory above 48 KB (l2_distance.cu).
 //
 // A block gets at most 48 KB of dynamic shared memory unless its kernel
 // was granted more with cudaFuncSetAttribute, up to 227 KB (232,448

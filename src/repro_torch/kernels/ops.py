@@ -32,9 +32,6 @@ MAX_LSH_BITS = 30
 # the fused hops keep a lane's [beam | candidates] in shared memory
 # without the opt-in
 MAX_SMEM_BYTES = 48 * 1024
-# pq_adc stages the lane's (M, K) LUT with the opt-in, up to what one
-# block can have on an H100
-MAX_SMEM_OPTIN_BYTES = 232_448
 # l2_distance tiles B in 128-row blocks along the grid's y dimension
 MAX_L2_ROWS = 65535 * 128
 
@@ -52,10 +49,10 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_smem(nbytes: int, what: str, limit: int = MAX_SMEM_BYTES) -> None:
-    if nbytes > limit:
+def _check_smem(nbytes: int, what: str) -> None:
+    if nbytes > MAX_SMEM_BYTES:
         raise ValueError(f"{what} needs {nbytes} bytes of shared memory, "
-                         f"more than the kernel's {limit}")
+                         f"more than the kernel's {MAX_SMEM_BYTES}")
 
 
 def _on_card(device: torch.device) -> bool:
@@ -173,30 +170,48 @@ def fused_hop_l2(vectors, cand_ids, queries, beam_ids, beam_dists, beam_exp):
     return out_ids, out_d, out_exp, out_nf
 
 
-def pq_adc(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """(B, M, K) f32 LUTs, (B, C, M) int32 codes -> (B, C) f32 ADC sums
-    ``Σ_m luts[b, m, codes[b, c, m]]``.
+def pq_adc(luts: torch.Tensor, codes: torch.Tensor,
+           ids: torch.Tensor | None = None) -> torch.Tensor:
+    """ADC sums ``Σ_m luts[b, m, row[m]]`` of (B, M, K) f32 LUTs over
+    candidate code rows, in one of two forms:
 
-    Codes lie in [0, K) by construction (``core.pq.encode`` is an
-    argmin over K centroids); the kernel does not check them."""
+    * ``pq_adc(luts, codes)``: (B, C, M) int32 code rows -> (B, C), the
+      reference's contract batched over lanes;
+    * ``pq_adc(luts, table, ids)``: an (N, M) int32 code table and (B, C)
+      int32 ids -> (B, C), each row read by id inside the kernel; ids < 0
+      give +inf.  This is ``core.pq.ADCDist``'s whole call.
+
+    Codes lie in [0, K) by construction (``core.pq.encode`` is an argmin
+    over K centroids) and ids below N; the kernel checks neither (an id
+    >= N reads row N-1)."""
     dev = luts.device
     _check("luts", luts, torch.float32, 3, dev)
-    _check("codes", codes, torch.int32, 3, dev)
     b, m, k = luts.shape
-    c = codes.shape[1]
-    if codes.shape != (b, c, m):
-        raise ValueError(f"codes shape {tuple(codes.shape)} != (B, C, M) "
-                         f"with B={b}, M={m}")
+    if ids is None:
+        _check("codes", codes, torch.int32, 3, dev)
+        c = codes.shape[1]
+        if codes.shape != (b, c, m):
+            raise ValueError(f"codes shape {tuple(codes.shape)} != (B, C, M) "
+                             f"with B={b}, M={m}")
+    else:
+        _check("codes", codes, torch.int32, 2, dev)
+        _check("ids", ids, torch.int32, 2, dev)
+        c = ids.shape[1]
+        if codes.shape[1] != m:
+            raise ValueError(f"codes have {codes.shape[1]} subspaces, LUTs "
+                             f"{m}")
+        if ids.shape[0] != b:
+            raise ValueError(f"ids has {ids.shape[0]} lanes, LUTs {b}")
+        if codes.shape[0] == 0:
+            raise ValueError("the code table is empty")
     if not _on_card(dev):
-        return ref.pq_adc_ref(luts, codes)
-    lib = library("pq_adc")
-    _check_smem(lib.pq_adc_smem_bytes(m, k), f"an (M, K) = {(m, k)} LUT",
-                MAX_SMEM_OPTIN_BYTES)
+        return ref.pq_adc_ref(luts, codes, ids)
     out = torch.empty((b, c), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    rc = lib.launch_pq_adc(_ptr(luts), _ptr(codes), _ptr(out), b, c, m, k,
-                           _stream(dev))
+    rc = library("pq_adc").launch_pq_adc(
+        _ptr(luts), _ptr(codes), None if ids is None else _ptr(ids),
+        _ptr(out), codes.shape[0], b, c, m, k, _stream(dev))
     _raise_on(rc, "pq_adc")
     LAUNCHES["pq_adc"] += 1
     return out

@@ -5,7 +5,8 @@ Each function is the semantic ground truth its CUDA kernel is held to
 on the CPU.  They mirror ``repro/kernels/ref.py`` with one difference:
 ``gather_distance_ref`` and ``pq_adc_ref`` are batched to (B, C) — one
 query (one LUT) per row of ids — because that is the shape every caller
-in the port hands them.  ``l2_distance_ref`` computes every (query,
+in the port hands them; ``pq_adc_ref`` also takes the ids form that
+``core.pq.ADCDist`` calls.  ``l2_distance_ref`` computes every (query,
 point) block in the direct form, a block of queries at a time, so that
 its (rows, C, d) difference stays near ``CHUNK_ELEMS`` elements.
 """
@@ -48,9 +49,15 @@ def lsh_hash_ref(queries: torch.Tensor,
     return (bits * weights).sum(-1).to(torch.int32)
 
 
-def pq_adc_ref(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+def pq_adc_ref(luts: torch.Tensor, codes: torch.Tensor,
+               ids: torch.Tensor | None = None) -> torch.Tensor:
     """(B, M, K) LUTs, (B, C, M) codes -> (B, C) summed asymmetric
-    distances ``Σ_m luts[b, m, codes[b, c, m]]``, added in m order."""
+    distances ``Σ_m luts[b, m, codes[b, c, m]]``, added in m order.
+    With (B, C) ``ids``, ``codes`` is an (N, M) table whose rows the ids
+    pick; ids < 0 give +inf."""
+    if ids is not None:
+        d = pq_adc_ref(luts, codes[ids.clamp(min=0).long()])
+        return torch.where(ids < 0, torch.inf, d)
     g = luts.float().gather(2, codes.long().transpose(1, 2))    # (B, M, C)
     acc = g[:, 0]
     for m in range(1, g.shape[1]):
@@ -99,6 +106,5 @@ def fused_hop_pq_ref(luts, codes, cand_ids, beam_ids, beam_dists, beam_exp):
     (B, M, K) per-query LUTs, (N, M) code table, (B, C) candidate ids,
     (B, L) beam state -> (new_ids, new_dists, new_exp, n_fresh).
     """
-    d = pq_adc_ref(luts, codes[cand_ids.clamp(min=0).long()])
-    d = torch.where(cand_ids < 0, torch.inf, d)
+    d = pq_adc_ref(luts, codes, cand_ids)
     return _merge_ref(cand_ids, d, beam_ids, beam_dists, beam_exp)

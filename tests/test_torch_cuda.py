@@ -13,7 +13,8 @@ torch's reduction add the d squares in different orders); PQ distances
 rtol 1e-6 (sums of M LUT entries); ids, expanded flags and fresh counts
 exactly equal where no two distances tie within that tolerance; LSH
 codes equal except where a projection sits within 1e-5 * |q| * |h| of
-0; ``l2_distance`` rtol/atol 1e-4 (the kernel's expanded form against
+0; the two forms of ``pq_adc`` and the fused and composed PQ hops bit
+for bit; ``l2_distance`` rtol/atol 1e-4 (the kernel's expanded form against
 the plain version's direct form).
 """
 from __future__ import annotations
@@ -118,6 +119,7 @@ def test_cuda_tensors_never_reach_the_plain_versions(dev, monkeypatch):
     ops.fused_hop_l2(*gpu)
     ops.lsh_hash(gpu[2], gpu[0][:8].contiguous())
     ops.pq_adc(luts, codes[gpu[1].clamp(min=0).long()])
+    ops.pq_adc(luts, codes, gpu[1])
     ops.fused_hop_pq(luts, codes, *gpu[1:2], *gpu[3:])
     ops.l2_distance(gpu[2], gpu[0])
     torch.cuda.synchronize()
@@ -226,6 +228,78 @@ def test_pq_kernels_match_plain(dev, n, b, c, l, m, k):
         "fused_hop_pq": 1, "pq_adc": 1, "l2_distance": 0}
 
 
+@pytest.mark.parametrize("m", [8, 16, 96, 5])
+@pytest.mark.parametrize("c", [41, 64])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pq_adc_ids_form_matches_table_form(dev, m, c, offset):
+    """The id form (code rows read by id in the kernel) bit for bit the
+    table form over the rows torch gathers, +inf exactly at the -1 ids
+    (a whole lane of them too), within rtol 1e-6 of the plain version;
+    and the fused PQ hop bit for bit the composed hop built on it.  M=5
+    and a table that starts 4 bytes past a 16-byte boundary (offset 1)
+    take the one-code-at-a-time path."""
+    rng = np.random.default_rng(m + c + offset)
+    n, b, l, k = 20000, 300, 16, 256
+    luts = _pq_tables(rng, 1, b, m, k, dev)[0]
+    flat = torch.as_tensor(rng.integers(0, k, size=(n * m + offset,))
+                           .astype(np.int32), device=dev)
+    codes = flat[offset:].view(n, m)
+    assert (codes.data_ptr() % 16 == 0) == (offset == 0)
+    _, cand, _, bids, _, _ = _hop_inputs(rng, n, b, c, l, 4)
+    cand, bids = cand.to(dev), bids.to(dev)
+    start = dict(ops.LAUNCHES)
+    got = ops.pq_adc(luts, codes, cand)
+    rows = codes[cand.clamp(min=0).long()]
+    table_form = ops.pq_adc(luts, rows)
+    assert torch.equal(torch.isinf(got), cand < 0)
+    assert torch.equal(got, torch.where(cand < 0, torch.inf, table_form))
+    want = ref.pq_adc_ref(luts, codes, cand)
+    m_ok = cand >= 0
+    torch.testing.assert_close(got[m_ok], want[m_ok], rtol=1e-6, atol=0)
+
+    bd, order = torch.sort(ref.pq_adc_ref(luts, codes, bids), dim=1,
+                           stable=True)
+    bids = bids.gather(1, order).contiguous()
+    bexp = (bids < 0) | torch.as_tensor(rng.random((b, l)) < 0.5,
+                                        device=dev)
+    fused = ops.fused_hop_pq(luts, codes, cand, bids, bd.contiguous(), bexp)
+    composed = ref._merge_ref(cand, got, bids, bd.contiguous(), bexp)
+    for g, w in zip(fused, composed):
+        assert torch.equal(g, w)
+    torch.cuda.synchronize()
+    assert {kk: ops.LAUNCHES[kk] - start[kk] for kk in start} == {
+        "gather_distance": 0, "lsh_hash": 0, "fused_hop_l2": 0,
+        "fused_hop_pq": 1, "pq_adc": 2, "l2_distance": 0}
+
+
+@pytest.mark.parametrize("b,d,l,offset", [
+    *[(37, d, l, 0) for d in (24, 768, 777) for l in (1, 8, 30)],
+    (4096, 768, 8, 0), (256, 24, 8, 0), (1, 24, 8, 0), (37, 768, 8, 1),
+    (333, 128, 13, 0)])
+def test_lsh_hash_matches_plain(dev, b, d, l, offset):
+    """Codes equal the plain version's except for bits whose projection
+    lies within 1e-5 * |q| * |h| of 0; B=37 is no multiple of the 8 or
+    32 queries a block takes, and offset 1 (queries 4 bytes past a
+    16-byte boundary) takes the one-float-at-a-time path."""
+    rng = np.random.default_rng(b + d + l)
+    flat = torch.as_tensor(rng.normal(size=(b * d + offset,))
+                           .astype(np.float32), device=dev)
+    q = flat[offset:].view(b, d)
+    h = torch.as_tensor(rng.normal(size=(l, d)).astype(np.float32),
+                        device=dev)
+    start = ops.LAUNCHES["lsh_hash"]
+    got = ops.lsh_hash(q, h)
+    want = ref.lsh_hash_ref(q, h)
+    proj = q.double() @ h.double().T
+    scale = q.double().norm(dim=1)[:, None] * h.double().norm(dim=1)
+    weights = 2 ** torch.arange(l, dtype=torch.int64, device=dev)
+    near = ((proj.abs() <= RTOL * scale).long() * weights).sum(1)
+    assert not ((got ^ want).long() & ~near).any()
+    assert got.dtype == torch.int32 and got.shape == (b,)
+    assert int(got.min()) >= 0 and int(got.max()) < 2 ** l
+    assert ops.LAUNCHES["lsh_hash"] == start + 1
+
+
 @pytest.mark.parametrize("b,c,d", [(8, 8, 16), (37, 203, 64),
                                    (1000, 777, 768), (130, 127, 33),
                                    (1, 5, 768), (300, 260, 100)])
@@ -264,16 +338,20 @@ def test_pq_hop_ties_break_like_a_stable_sort(dev):
 
 
 def test_oversized_lut_raises(dev):
-    """pq_adc stages the LUT: above the 227 KB a block can have it raises,
-    naming the limit.  fused_hop_pq stages no LUT and takes the same one."""
+    """A 256 KB LUT, beyond the 227 KB of shared memory a block can have:
+    neither PQ kernel stages the LUT, so both take it and equal their
+    plain versions (pq_adc in both forms)."""
     rng = np.random.default_rng(2)
     luts, codes = _pq_tables(rng, 100, 2, 256, 256, dev)    # 256 KB LUT
-    ids = torch.zeros((2, 4), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match=f"shared memory.*"
-                                         f"{ops.MAX_SMEM_OPTIN_BYTES}"):
-        ops.pq_adc(luts, codes[ids.long()])
     cand = torch.as_tensor(rng.integers(-1, 100, (2, 4)), dtype=torch.int32,
                            device=dev)
+    rows = codes[cand.clamp(min=0).long()]
+    torch.testing.assert_close(ops.pq_adc(luts, rows),
+                               ref.pq_adc_ref(luts, rows), rtol=1e-6, atol=0)
+    got = ops.pq_adc(luts, codes, cand)
+    want = ref.pq_adc_ref(luts, codes, cand)
+    assert torch.equal(torch.isinf(got), cand < 0)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
     beam = (torch.full((2, 3), -1, dtype=torch.int32, device=dev),
             torch.full((2, 3), torch.inf, device=dev),
             torch.ones((2, 3), dtype=torch.bool, device=dev))

@@ -64,7 +64,8 @@ def test_gather_distance_plain_matches_jax(n, b, c, d):
     assert np.all(np.isinf(got[ids < 0]))
 
 
-@pytest.mark.parametrize("b,l,d", [(4, 4, 16), (100, 8, 64), (256, 16, 128)])
+@pytest.mark.parametrize("b,l,d", [(4, 4, 16), (100, 8, 64), (256, 16, 128),
+                                   (256, 8, 24), (37, 30, 777), (5, 1, 768)])
 def test_lsh_hash_plain_matches_jax(b, l, d):
     rng = np.random.default_rng(b + l)
     q = rng.normal(size=(b, d)).astype(np.float32)

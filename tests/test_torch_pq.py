@@ -139,6 +139,35 @@ def test_adc_dist_fn_and_rerank_match_jax(corpus, queries, ref_cb, port_cb):
     assert got_ids.dtype == torch.int32 and (got_ids[0] == -1).all()
 
 
+@pytest.mark.parametrize("c,all_invalid_lane", [(40, True), (1, False),
+                                                 (64, False)])
+def test_pq_adc_ids_form_matches_jax_adc_dist_fn(corpus, queries, ref_cb,
+                                                 port_cb, c,
+                                                 all_invalid_lane):
+    """``ops.pq_adc(luts, table, ids)`` against the reference's composed
+    ADC distance (``adc_dist_fn`` on the transplanted codebook, its codes
+    and the same ids, -1 among them) to the tolerance of
+    ``test_adc_dist_fn_and_rerank_match_jax``, and bit for bit against
+    the table form over the gathered rows."""
+    x = corpus[0]
+    rng = np.random.default_rng(c)
+    codes = jpq.encode(ref_cb, jnp.asarray(x))
+    ids = rng.integers(-1, x.shape[0], size=(24, c)).astype(np.int32)
+    if all_invalid_lane:
+        ids[3] = -1
+    q = queries[:24]
+    want = np.asarray(jax.vmap(jpq.adc_dist_fn(ref_cb, codes))(
+        jnp.asarray(q), jnp.asarray(ids)))
+    table, tids = _t(np.array(codes), ids)
+    luts = tpq.query_luts(port_cb, torch.as_tensor(q))
+    got = ops.pq_adc(luts, table, tids)
+    _assert_dists(got.numpy(), want)
+    rows = table[tids.clamp(min=0).long()]
+    assert torch.equal(got, torch.where(tids < 0, torch.inf,
+                                        ops.pq_adc(luts, rows)))
+    assert torch.isinf(got[tids < 0]).all() and got.dtype == torch.float32
+
+
 @pytest.mark.parametrize("m,k,c", [(4, 8, 16), (8, 256, 77), (16, 64, 128)])
 def test_pq_adc_plain_matches_jax(m, k, c):
     rng = np.random.default_rng(m + k + c)
@@ -253,8 +282,21 @@ def test_cpu_pq_wrappers_take_the_plain_path_without_counting():
     assert ops.LAUNCHES == before
 
 
+def test_cpu_pq_adc_ids_form_takes_the_plain_path_without_counting():
+    rng = np.random.default_rng(1)
+    luts = (rng.normal(size=(3, 4, 8)) ** 2).astype(np.float32)
+    codes = rng.integers(0, 8, size=(40, 4)).astype(np.int32)
+    cand = _hop_state(rng, 40, 3, 5, 4)[0]
+    before = dict(ops.LAUNCHES)
+    got = ops.pq_adc(*_t(luts, codes, cand))
+    assert ops.LAUNCHES == before
+    assert got.shape == (3, 5) and got.device.type == "cpu"
+
+
 @pytest.mark.parametrize("case", ["codes_dtype", "codes_shape", "lut_dim",
-                                  "beam_shape", "l2_dim"])
+                                  "beam_shape", "l2_dim", "ids_dtype",
+                                  "ids_rank", "ids_lanes", "table_dtype",
+                                  "table_subspaces", "table_empty"])
 def test_pq_wrappers_reject_what_the_kernels_do_not_take(case):
     luts = torch.zeros((2, 4, 8))
     codes = torch.zeros((2, 3, 4), dtype=torch.int32)
@@ -262,7 +304,8 @@ def test_pq_wrappers_reject_what_the_kernels_do_not_take(case):
     ids = torch.zeros((2, 3), dtype=torch.int32)
     beam = (torch.zeros((2, 5), dtype=torch.int32), torch.zeros((2, 5)),
             torch.zeros((2, 5), dtype=torch.bool))
-    err = TypeError if case == "codes_dtype" else ValueError
+    err = TypeError if case in ("codes_dtype", "ids_dtype",
+                                "table_dtype") else ValueError
     with pytest.raises(err):
         if case == "codes_dtype":
             ops.pq_adc(luts, codes.long())
@@ -273,6 +316,18 @@ def test_pq_wrappers_reject_what_the_kernels_do_not_take(case):
         elif case == "beam_shape":
             ops.fused_hop_pq(luts, table, ids, beam[0][:, :4].contiguous(),
                              *beam[1:])
+        elif case == "ids_dtype":
+            ops.pq_adc(luts, table, ids.long())
+        elif case == "ids_rank":
+            ops.pq_adc(luts, table, ids[None])
+        elif case == "ids_lanes":
+            ops.pq_adc(luts, table, torch.zeros((3, 3), dtype=torch.int32))
+        elif case == "table_dtype":
+            ops.pq_adc(luts, table.float(), ids)
+        elif case == "table_subspaces":
+            ops.pq_adc(luts, table[:, :3].contiguous(), ids)
+        elif case == "table_empty":
+            ops.pq_adc(luts, table[:0], ids - 1)
         else:
             ops.l2_distance(torch.zeros((2, 8)), torch.zeros((3, 7)))
 
