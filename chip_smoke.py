@@ -25,17 +25,33 @@ then:
    ``mode="diskann"`` twin, a ``hop_backend="fused"`` twin and a CPU twin
    over the same graph, with recall against brute force; then the same
    four twins with PQ traversal and full-precision rerank
-   (``IndexSpec(pq=8)``) over that graph;
-3. deployment width: 1,000,000 x 768 vectors, degree 64, over a random
+   (``IndexSpec(pq=8)``) over that graph; then, over that graph, the
+   mutations (keyed upserts, a true upsert, deletes by key and a
+   consolidate on a card twin and a CPU twin that must end with the same
+   graph), ``mode="lsh_apg"`` and ``search_two_phase`` under both hop
+   backends;
+3. filtered search: ``make_papers()`` (20,000 x 24, 16 labels, 2,048
+   queries, each with its own label), one ``build_stitched_graph`` on
+   the card, then the four twins with ``IndexSpec(filters=True)``, at
+   full precision and with ``pq=8``: every id and every catapult start on
+   its lane's label;
+4. deployment width: 1,000,000 x 768 vectors, degree 64, over a random
    regular graph, 4 batches of 4,096 queries under both hop backends, at
    full precision and with PQ (M=8, K=256; training, encoding and LUT
    times recorded); then ``IndexSpec(pq=96)`` (96 KB LUTs) on a 20,000
-   x 768 slice under both hop backends, whose ids must be equal.
+   x 768 slice under both hop backends, whose ids must be equal; then
+   filtered search over a stitched-shaped (1M, 64 + 32) adjacency with
+   16 labels, an upsert of 64 rows and a delete of 4,096, and
+   ``mode="lsh_apg"`` (its build hashes every row), all at 1M rows, and
+   ``consolidate`` on the 20,000-row slice.
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
 after it; each path must show exactly the launches its batches imply
-(``expected_launches``).  Any failed check exits non-zero.  Prints the
+(``expected_launches``, ``two_phase_launches``; a masked search stays
+on the composed hop, insert searches and builds launch
+``gather_distance`` alone, deletes and consolidates launch nothing).
+Any failed check exits non-zero.  Prints the
 card's name and power limit first, a ``{"kernels": [...]}`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
 or of the reference package.
@@ -65,6 +81,9 @@ PQ_M, PQ_K = 8, 256            # default_pq_subspaces(768), 8-bit codes
 PQ_M_WIDE = 96                 # a 96 KB LUT a lane, beyond 48 KB of shared
                                # memory without the opt-in
 LSH_TRIP = (256, 24, 8)        # the main path's lsh_hash: B, d, L
+PHASE1_ITERS = 8               # search_two_phase's default phase-1 budget
+N_LABELS = 16                  # make_papers' categories, also at 1M rows
+DEPLOY_UPSERT = 64             # rows upserted at 1M x 768 (host-bound)
 SPIN_CYCLES = 2 ** 25          # ~17 ms at 1.98 GHz, before each timed run
 
 
@@ -544,12 +563,21 @@ def idle_share(database, queries, **kw) -> dict:
                 idle_share=(1.0 - busy / wall) if busy > 0 else None)
 
 
-def brute_force_knn_cuda(corpus, queries, k, dev):
+def brute_force_knn_cuda(corpus, queries, k, dev, labels=None,
+                         filter_labels=None, exclude=None):
+    """Exact k-NN on the card; ``filter_labels`` (with ``labels``) keeps a
+    filtered lane to its label, ``exclude`` hides rows."""
     x = torch.as_tensor(corpus, device=dev)
+    lab = None if labels is None else torch.as_tensor(labels, device=dev)
     out = []
     for lo in range(0, queries.shape[0], 256):
         q = torch.as_tensor(queries[lo: lo + 256], device=dev)
         d = torch.square(q[:, None, :] - x[None]).sum(-1)
+        if exclude is not None:
+            d[:, torch.as_tensor(exclude, device=dev)] = torch.inf
+        if filter_labels is not None:
+            fl = torch.as_tensor(filter_labels[lo: lo + 256], device=dev)
+            d[(lab[None, :] != fl[:, None]) & (fl[:, None] >= 0)] = torch.inf
         out.append(torch.topk(d, k, dim=1, largest=False).indices)
     return torch.cat(out).to(torch.int32).cpu().numpy()
 
@@ -566,48 +594,124 @@ def counted(fn):
 
 
 def expected_launches(mode: str, hop_backend: str, loop_iters,
-                      pq: bool = False) -> dict:
+                      pq: bool = False, filtered: bool = False) -> dict:
     """Kernel launches of a run of search batches whose beam searches
     took ``loop_iters`` loop iterations each (a batch's iterations are the
     largest ``hops`` of its lanes).  The composed hop's distance kernel
     is ``gather_distance`` at full precision and ``pq_adc`` with PQ; the
     fused hop is ``fused_hop_l2`` or ``fused_hop_pq``.  Per batch:
     catapult mode hashes once and scores the catapult starts and the
-    fallback (two composed-distance launches); the init merge and every
-    iteration are one composed-distance launch unfused, one fused-hop
-    launch fused; PQ reranks the final beam with one ``gather_distance``
-    launch.  ``l2_distance`` is on no path."""
+    fallback (two composed-distance launches); ``lsh_apg`` mode hashes
+    once and traverses at full precision even with PQ; the init merge and
+    every iteration are one composed-distance launch unfused, one
+    fused-hop launch fused, and always composed on a filtered engine (a
+    predicate mask keeps the search off the fused kernels); PQ reranks
+    the final beam with one ``gather_distance`` launch.  ``l2_distance``
+    is on no path."""
     nb, it = len(loop_iters), int(sum(loop_iters))
-    composed = "pq_adc" if pq else "gather_distance"
-    fused = "fused_hop_pq" if pq else "fused_hop_l2"
+    adc = pq and mode != "lsh_apg"
+    composed = "pq_adc" if adc else "gather_distance"
+    fused = "fused_hop_pq" if adc else "fused_hop_l2"
     out = dict.fromkeys(("gather_distance", "lsh_hash", "fused_hop_l2",
                          "fused_hop_pq", "pq_adc", "l2_distance"), 0)
-    if mode == "catapult":
+    if mode in ("catapult", "lsh_apg"):
         out["lsh_hash"] = nb
+    if mode == "catapult":
         out[composed] += 2 * nb
-    out[fused if hop_backend == "fused" else composed] += nb + it
+    hop = fused if hop_backend == "fused" and not filtered else composed
+    out[hop] += nb + it
     if pq:
         out["gather_distance"] += nb
     return out
 
 
-def replay(database, queries, batch=256, passes=2):
-    """Replay the queries in order, ``passes`` times; per-pass results."""
+def two_phase_launches(mode: str, hop_backend: str, hops,
+                       phase1_iters: int) -> dict:
+    """Kernel launches of one ``search_two_phase`` batch from its summed
+    ``hops``.  Phase 1 (full precision, unfiltered; the diskann path in
+    every mode but catapult) runs ``phase1_iters`` iterations when any lane
+    straggles, and a straggler was active in all of them, so lanes with
+    more hops are exactly the stragglers; phase 2 is one more search over
+    them, from their phase-1 beams, of ``max(hops) - phase1_iters``
+    iterations."""
+    top = int(np.max(hops))
+    first = "catapult" if mode == "catapult" else "diskann"
+    if top <= phase1_iters:
+        return expected_launches(first, hop_backend, [top])
+    one = expected_launches(first, hop_backend, [phase1_iters])
+    two = expected_launches("diskann", hop_backend, [top - phase1_iters])
+    return {k: one[k] + two[k] for k in one}
+
+
+def replay(database, queries, batch=256, passes=2, filter_labels=None,
+           two_phase=False):
+    """Replay the queries in order, ``passes`` times; per-pass results.
+    ``two_phase`` replays through ``search_two_phase`` (phase 1 of
+    ``PHASE1_ITERS`` iterations) instead of ``Database.search``."""
     res = []
     for _ in range(passes):
-        ids, hops, used, ms, iters = [], [], [], [], []
+        ids, hops, used, won, ms, iters = [], [], [], [], [], []
         for lo in range(0, queries.shape[0], batch):
+            q = queries[lo: lo + batch]
             t0 = time.perf_counter()
-            r = database.search(queries[lo: lo + batch], k=10)
+            if two_phase:
+                got, _, st = database.backend.search_two_phase(
+                    q, k=10, phase1_iters=PHASE1_ITERS)
+            else:
+                got, _, st = database.search(
+                    q, k=10, filter_labels=None if filter_labels is None
+                    else filter_labels[lo: lo + batch])
             ms.append((time.perf_counter() - t0) * 1e3)
-            ids.append(r.ids)
-            hops.append(r.stats.hops)
-            used.append(r.stats.used)
-            iters.append(int(r.stats.hops.max()))
+            ids.append(got)
+            hops.append(st.hops)
+            used.append(st.used)
+            won.append(st.won)
+            iters.append(int(st.hops.max()))
         res.append(dict(ids=np.concatenate(ids), hops=np.concatenate(hops),
-                        used=np.concatenate(used), batch_ms=ms,
-                        loop_iters=iters))
+                        used=np.concatenate(used), won=np.concatenate(won),
+                        batch_hops=hops, batch_ms=ms, loop_iters=iters))
     return res
+
+
+def path_launches(mode, hb, passes, pq=False, filtered=False,
+                  two_phase=False) -> dict:
+    """What a replay's batches imply: ``expected_launches`` over their
+    loop iterations, or ``two_phase_launches`` batch by batch."""
+    if not two_phase:
+        return expected_launches(mode, hb,
+                                 [i for p in passes for i in p["loop_iters"]],
+                                 pq=pq, filtered=filtered)
+    out = expected_launches(mode, hb, [])
+    for p in passes:
+        for hops in p["batch_hops"]:
+            for name, n in two_phase_launches(mode, hb, hops,
+                                              PHASE1_ITERS).items():
+                out[name] += n
+    return out
+
+
+def spy_starts(fn):
+    """Run ``fn`` with ``core.catapult``'s beam search wrapped so that the
+    start ids of every call are kept (host copies, in call order)."""
+    from repro_torch.core import catapult as cat_mod
+    real, seen = cat_mod.beam_search, []
+
+    def spy(adjacency, queries, start_ids, *args, **kw):
+        seen.append(start_ids.cpu().numpy())
+        return real(adjacency, queries, start_ids, *args, **kw)
+
+    cat_mod.beam_search = spy
+    try:
+        return fn(), seen
+    finally:
+        cat_mod.beam_search = real
+
+
+def off_label(ids, fl, labels) -> int:
+    """Ids >= 0 of filtered lanes whose label is not the lane's."""
+    lane = np.broadcast_to(fl[:, None], ids.shape)
+    bad = (ids >= 0) & (lane >= 0) & (labels[np.maximum(ids, 0)] != lane)
+    return int(bad.sum())
 
 
 def pq_stages(database, queries, dev, **kw) -> dict:
@@ -624,41 +728,60 @@ def pq_stages(database, queries, dev, **kw) -> dict:
                 rerank_ms=tr.stage_ms("rerank"), total_ms=tr.total_ms)
 
 
-def replay_twins(wl, truth, graph, dev, pq=None, built=None) -> dict:
+def replay_twins(wl, truth, graph, dev, pq=None, built=None,
+                 filtered=False) -> dict:
     """Replay the workload twice through the catapult, diskann and fused
     twins over one graph (``built`` serves as the catapult twin) and a
     CPU twin of the catapult one, each path's launches counted; the
-    gates every traversal must pass, at full precision or with PQ."""
+    gates every traversal must pass, at full precision or with PQ.
+
+    ``filtered``: every twin is ``IndexSpec(filters=True)`` over the
+    workload's labels and ``graph`` is (adjacency, medoid, label
+    entries); each query carries its own label.  The gates then are the
+    predicate on every returned id and on every start of the catapult
+    twin (its catapult destinations and label entries), fused ids equal
+    to unfused ids, catapult pass-2 hops below diskann's, catapult
+    recall@10 within 1 point of diskann's and the CPU twin within 1
+    point of the card."""
     from repro_torch import db
     from repro_torch.core.engine import recall_at_k
-    prefix = "pq_" if pq else ""
-    twins, runs, paths = {}, {}, {}
+    prefix = ("filtered_" if filtered else "") + ("pq_" if pq else "")
+    fl = wl.filter_labels if filtered else None
+    labels = wl.labels if filtered else None
+    twins, runs, paths, starts = {}, {}, {}, []
     for name, mode, hb in (("catapult", "catapult", "unfused"),
                            ("diskann", "diskann", "unfused"),
                            ("fused", "catapult", "fused")):
         def drive(name=name, mode=mode, hb=hb):
             d = built if built is not None and name == "catapult" else \
-                db.create(db.IndexSpec(mode=mode, hop_backend=hb, pq=pq),
-                          wl.corpus, prebuilt=graph)
-            return d, replay(d, wl.queries)
+                db.create(db.IndexSpec(mode=mode, hop_backend=hb, pq=pq,
+                                       filters=filtered),
+                          wl.corpus, labels, prebuilt=graph)
+            if filtered and name == "catapult":
+                passes, seen = spy_starts(
+                    lambda: replay(d, wl.queries, filter_labels=fl))
+                starts.extend(seen)
+                return d, passes
+            return d, replay(d, wl.queries, filter_labels=fl)
 
         (twins[name], runs[name]), paths[prefix + name] = counted(drive)
-        want = expected_launches(
-            mode, hb, [i for p in runs[name] for i in p["loop_iters"]],
-            pq=bool(pq))
+        want = path_launches(mode, hb, runs[name], pq=bool(pq),
+                             filtered=filtered)
         check(paths[prefix + name] == want,
               f"{prefix}{name} replay launched {paths[prefix + name]}, its "
               f"batches imply {want}")
-    profiled = {name: idle_share(d, wl.queries[-256:], k=10)
+    tail = {} if fl is None else dict(filter_labels=fl[-256:])
+    profiled = {name: idle_share(d, wl.queries[-256:], k=10, **tail)
                 for name, d in twins.items()}
-    cpu_twin = db.create(db.IndexSpec(pq=pq), wl.corpus, prebuilt=graph,
-                         device="cpu")
-    runs["cpu"] = replay(cpu_twin, wl.queries)
+    cpu_twin = db.create(db.IndexSpec(pq=pq, filters=filtered), wl.corpus,
+                         labels, prebuilt=graph, device="cpu")
+    runs["cpu"] = replay(cpu_twin, wl.queries, filter_labels=fl)
 
     out = {"launches": paths, "one_batch_256": profiled}
     if pq:
         out["stages_batch_256"] = pq_stages(twins["catapult"],
-                                            wl.queries[-256:], dev, k=10)
+                                            wl.queries[-256:], dev, k=10,
+                                            **tail)
     for name, passes in runs.items():
         for i, p in enumerate(passes):
             out[f"{name}_pass{i + 1}"] = dict(
@@ -669,14 +792,36 @@ def replay_twins(wl, truth, graph, dev, pq=None, built=None) -> dict:
                 batch_ms_p50=float(np.median(p["batch_ms"])))
     for k, v in out.items():
         print(f"main path {prefix}{k}: {v}")
-    what = "PQ " if pq else ""
+    what = ("filtered " if filtered else "") + ("PQ " if pq else "")
     c1, c2 = out["catapult_pass1"], out["catapult_pass2"]
     dk = out["diskann_pass2"]
-    check(c2["mean_hops"] < c1["mean_hops"],
-          f"{what}catapult hops did not fall on the second pass")
+    if filtered:
+        bad = {name: sum(off_label(p["ids"], fl, labels) for p in passes)
+               for name, passes in runs.items()}
+        out["off_label_ids"] = bad
+        check(not any(bad.values()), f"{what}search returned ids off their "
+                                     f"lane's label: {bad}")
+        # the catapult twin's starts, batch by batch: catapult
+        # destinations and the label entry, all on the lane's label
+        nq = wl.queries.shape[0]
+        lanes = np.concatenate([fl[lo: lo + 256] for _ in range(2)
+                                for lo in range(0, nq, 256)])
+        st = np.concatenate(starts)
+        out["catapult_starts"] = dict(
+            lanes=int(st.shape[0]), valid=int((st >= 0).sum()),
+            catapult=int((st[:, :-1] >= 0).sum()),
+            off_label=off_label(st, lanes, labels))
+        print(f"main path {prefix}catapult starts: {out['catapult_starts']}")
+        check(st.shape[0] == lanes.size and out["catapult_starts"]
+              ["off_label"] == 0 and out["catapult_starts"]["catapult"] > 0,
+              f"{what}catapult twin started a filtered lane off its label "
+              f"(or from no catapult at all): {out['catapult_starts']}")
+    else:
+        check(c2["mean_hops"] < c1["mean_hops"],
+              f"{what}catapult hops did not fall on the second pass")
+        check(c2["used"] >= 0.9, f"{what}catapult used {c2['used']} < 0.9")
     check(c2["mean_hops"] < dk["mean_hops"],
           f"{what}catapult hops are not below diskann's")
-    check(c2["used"] >= 0.9, f"{what}catapult used {c2['used']} < 0.9")
     check(c2["recall_at_10"] >= dk["recall_at_10"] - 0.01,
           f"{what}catapult recall fell more than 1 point below diskann's")
     for i in (1, 2):
@@ -693,7 +838,8 @@ def replay_twins(wl, truth, graph, dev, pq=None, built=None) -> dict:
 def phase_main_path(seed: int, dev) -> dict:
     """The tripclick workload: the Vamana build, then the full-precision
     twins and the PQ twins (``IndexSpec(pq=8)``, d=24 so ds=3) over the
-    built graph."""
+    built graph; then, over the same graph, the mutations, ``lsh_apg``
+    and ``search_two_phase``."""
     from repro_torch import db
     from repro_torch.data import make_tripclick
 
@@ -714,6 +860,212 @@ def phase_main_path(seed: int, dev) -> dict:
     out["build_s"] = build_s
     out["launches"]["build"] = built
     out["pq"] = replay_twins(wl, truth, graph, dev, pq=8)
+    for name, fn in (("mutations", phase_mutations), ("modes", phase_modes)):
+        t0 = time.perf_counter()
+        out[name] = fn(wl, graph, dev)
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"phase {name}: {out[name]['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_filtered(dev) -> dict:
+    """``make_papers()`` (20,000 x 24, 16 labels, 2,048 queries, each with
+    its own label): one ``build_stitched_graph`` on the card, then the
+    catapult, diskann, fused and CPU twins with ``IndexSpec(filters=True)``
+    over it, replayed twice, at full precision and with ``pq=8``."""
+    from repro_torch import db
+    from repro_torch.core.filters import build_stitched_graph
+    from repro_torch.data import make_papers
+
+    wl = make_papers()
+    truth = brute_force_knn_cuda(wl.corpus, wl.queries, 10, dev,
+                                 labels=wl.labels,
+                                 filter_labels=wl.filter_labels)
+
+    def build():
+        t0 = time.perf_counter()
+        g = build_stitched_graph(wl.corpus, wl.labels, N_LABELS,
+                                 db.IndexSpec().vamana(), device=dev)
+        return g, time.perf_counter() - t0
+
+    (graph, build_s), built = counted(build)
+    check(built["gather_distance"] > 0
+          and not any(n for k, n in built.items() if k != "gather_distance"),
+          f"the stitched build's searches did not run on the gather-distance "
+          f"kernel alone: {built}")
+    out = replay_twins(wl, truth, graph, dev, filtered=True)
+    out["build_s"] = build_s
+    out["launches"]["filtered_build"] = built
+    out["pq"] = replay_twins(wl, truth, graph, dev, pq=8, filtered=True)
+    return out
+
+
+def phase_mutations(wl, graph, dev) -> dict:
+    """The tripclick catapult twin with ``spare_capacity=1,280`` (the
+    1,024 upserted rows and the 256 that replace some of them; buckets
+    warmed by one replay) and a CPU twin over the same graph take the
+    same steps: ``upsert`` 1,024 rows with keys, search those rows,
+    ``upsert`` 256 of the keys again (a true upsert), ``delete`` 512 by
+    key, ``consolidate``.  After every step the two hold the same
+    adjacency, tombstones and medoid; no dead id comes back from a search
+    or stays in a bucket; recall@10 over the live rows stays within 1
+    point of the CPU twin's.  The share of upserted rows that come back
+    as their own top-1 is held within 1 point of the CPU twin's, not to
+    1: the reference's insert can leave a row of a batch with no in-edge
+    (a later row's reverse-edge prune drops it), and such rows are not
+    found."""
+    from repro_torch import db
+    from repro_torch.core.engine import recall_at_k
+    rng = np.random.default_rng(1024)
+    n = wl.corpus.shape[0]
+    new = (wl.corpus[rng.integers(0, n, 1024)]
+           + 0.25 * rng.normal(size=(1024, wl.corpus.shape[1]))).astype(
+               np.float32)
+    spec = db.IndexSpec(spare_capacity=1280)
+    twins = {where: db.create(spec, wl.corpus, prebuilt=graph, device=where)
+             for where in ("cuda", "cpu")}
+    card = twins["cuda"]
+    for d in twins.values():
+        replay(d, wl.queries, passes=1)
+    out, paths, steps = {}, {}, {}
+
+    def step(name, fn, search=None):
+        t0 = time.perf_counter()
+        got, paths[f"mutation_{name}"] = counted(lambda: fn(card))
+        steps[name] = time.perf_counter() - t0
+        fn(twins["cpu"])
+        a, b = card.backend, twins["cpu"].backend
+        same = dict(adjacency=bool(np.array_equal(a._adj_np, b._adj_np)),
+                    tombstones=bool(np.array_equal(a._tomb_np, b._tomb_np)),
+                    medoid=a.medoid == b.medoid,
+                    device_adjacency=bool(np.array_equal(
+                        a._adj.cpu().numpy(), a._adj_np)))
+        if not all(same.values()):
+            rows = (a._adj_np != b._adj_np).any(1).nonzero()[0]
+            print(f"mutation {name}: card and CPU twins differ {same}; "
+                  f"{rows.size} adjacency rows, first {rows[:8].tolist()}")
+        check(all(same.values()), f"mutation {name}: the card twin's state "
+                                  f"differs from the CPU twin's: {same}")
+        return got
+
+    keys = list(range(1024))
+    gids = step("upsert", lambda d: d.upsert(new, keys=keys))
+    check(paths["mutation_upsert"]["gather_distance"] > 0
+          and sum(paths["mutation_upsert"].values())
+          == paths["mutation_upsert"]["gather_distance"],
+          f"the insert searches did not run on the gather-distance kernel "
+          f"alone: {paths['mutation_upsert']}")
+    res, paths["mutation_search"] = counted(lambda: [
+        card.search(new[lo: lo + 256], k=10) for lo in range(0, 1024, 256)])
+    want = expected_launches("catapult", "unfused",
+                             [int(r.stats.hops.max()) for r in res])
+    check(paths["mutation_search"] == want,
+          f"searching the upserted rows launched "
+          f"{paths['mutation_search']}, its batches imply {want}")
+    top1 = np.concatenate([r.ids[:, 0] for r in res])
+    cpu_top1 = np.concatenate([twins["cpu"].search(new[lo: lo + 256],
+                                                   k=10).ids[:, 0]
+                               for lo in range(0, 1024, 256)])
+    adj = card.backend._adj_np
+    in_deg = np.bincount(adj[adj >= 0], minlength=adj.shape[0])[gids]
+    out.update(upserted_own_top1=float(np.mean(top1 == gids)),
+               upserted_own_top1_cpu=float(np.mean(cpu_top1 == gids)),
+               upserted_without_in_edge=int((in_deg == 0).sum()))
+    check(abs(out["upserted_own_top1"] - out["upserted_own_top1_cpu"])
+          <= 0.01, f"upserted rows found as their own top-1: "
+                   f"{out['upserted_own_top1']} on the card against "
+                   f"{out['upserted_own_top1_cpu']} on the CPU twin")
+    again = step("reupsert", lambda d: d.upsert(new[:256] + 0.01,
+                                                keys=keys[:256]))
+    step("delete", lambda d: d.delete(keys=keys[512:]))
+    for name in ("reupsert", "delete"):
+        extra = {k: v for k, v in paths[f"mutation_{name}"].items()
+                 if k != "gather_distance" or name == "delete"}
+        check(not any(extra.values()), f"mutation {name} launched "
+                                       f"{paths[f'mutation_{name}']}")
+    dead = np.concatenate([gids[:256], gids[512:]])
+    check(card.tombstones[dead].all() and not card.tombstones[again].any(),
+          "the upserted/deleted rows' tombstones are wrong")
+    live_q = np.concatenate([new, new[:256] + 0.01, wl.queries[-512:]])
+
+    def no_dead(tag):
+        ids = np.concatenate([card.search(live_q[lo: lo + 256], k=10).ids
+                              for lo in range(0, live_q.shape[0], 256)])
+        in_buckets = int(np.isin(card.backend._cat.buckets.ids.cpu().numpy(),
+                                 dead).sum())
+        came_back = int(np.isin(ids, dead).sum())
+        out[f"dead_ids_{tag}"] = dict(returned=came_back,
+                                      in_buckets=in_buckets)
+        check(came_back == 0 and in_buckets == 0,
+              f"dead ids {tag}: {came_back} returned, {in_buckets} in "
+              f"buckets")
+
+    no_dead("after_delete")
+    out["repaired_rows"] = step("consolidate", lambda d: d.consolidate())
+    check(not any(paths["mutation_consolidate"].values()),
+          f"consolidate launched {paths['mutation_consolidate']}")
+    no_dead("after_consolidate")
+    tomb = card.tombstones
+    truth = brute_force_knn_cuda(card.vectors, live_q, 10, dev,
+                                 exclude=np.nonzero(tomb)[0])
+    for where, d in twins.items():
+        ids = np.concatenate([d.search(live_q[lo: lo + 256], k=10).ids
+                              for lo in range(0, live_q.shape[0], 256)])
+        out[f"recall_at_10_{where}"] = recall_at_k(ids, truth)
+    check(abs(out["recall_at_10_cuda"] - out["recall_at_10_cpu"]) <= 0.01,
+          f"mutated card twin's recall {out['recall_at_10_cuda']} is not "
+          f"within 1 point of the CPU twin's {out['recall_at_10_cpu']}")
+    out.update(launches=paths, step_s=steps, dead=int(dead.size),
+               tombstone_fraction=card.backend.tombstone_fraction())
+    print(f"mutations: {out}")
+    return out
+
+
+def phase_modes(wl, graph, dev) -> dict:
+    """``mode='lsh_apg'`` and ``search_two_phase`` (catapult mode) over
+    the tripclick graph under both hop backends, replayed twice: fused
+    ids equal unfused ids; lsh_apg's pass-2 hops equal its pass-1 hops
+    (its table never adapts); the two-phase catapult ``won`` is nonzero
+    on the replay."""
+    from repro_torch import db
+    out, paths, runs = {}, {}, {}
+    for hb in ("unfused", "fused"):
+        (d, paths[f"lsh_apg_build_{hb}"]) = counted(lambda hb=hb: db.create(
+            db.IndexSpec(mode="lsh_apg", hop_backend=hb), wl.corpus,
+            prebuilt=graph))
+        check(paths[f"lsh_apg_build_{hb}"] == dict(
+                  expected_launches("diskann", hb, []), lsh_hash=1),
+              f"the lsh_apg build launched {paths[f'lsh_apg_build_{hb}']}, "
+              f"not one lsh_hash over the corpus")
+        for tag, mode, kw in (("lsh_apg", "lsh_apg", {}),
+                              ("two_phase", "catapult",
+                               dict(two_phase=True))):
+            if tag == "two_phase":
+                d = db.create(db.IndexSpec(hop_backend=hb), wl.corpus,
+                              prebuilt=graph)
+            name = f"{tag}_{hb}"
+            runs[name], paths[name] = counted(
+                lambda d=d, kw=kw: replay(d, wl.queries, **kw))
+            want = path_launches(mode, hb, runs[name], **kw)
+            check(paths[name] == want, f"{name} replay launched "
+                                       f"{paths[name]}, its batches imply "
+                                       f"{want}")
+            out[name] = [dict(mean_hops=float(p["hops"].mean()),
+                              won=float(p["won"].mean()),
+                              batch_ms_mean=float(np.mean(p["batch_ms"])))
+                         for p in runs[name]]
+    for tag in ("lsh_apg", "two_phase"):
+        for i in range(2):
+            check(np.array_equal(runs[f"{tag}_fused"][i]["ids"],
+                                 runs[f"{tag}_unfused"][i]["ids"]),
+                  f"{tag}: hop_backend='fused' ids differ from 'unfused'")
+    first, second = runs["lsh_apg_unfused"]
+    check(np.array_equal(first["hops"], second["hops"]),
+          "lsh_apg hops changed on the replay (its table must not adapt)")
+    check(runs["two_phase_unfused"][1]["won"].any(),
+          "search_two_phase: no catapult won on the replay")
+    out["launches"] = paths
+    print(f"modes: {out}")
     return out
 
 
@@ -832,6 +1184,30 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
                                    f"{paths[name]}, its batch implies {want}")
         ids[name] = r.ids
         out[name] = dict(rows=n96, mean_hops=float(r.stats.hops.mean()))
+
+    # this slice's paths at the same width: filtered, mutations, lsh_apg;
+    # consolidate on the pq=96 slice
+    rows_np = rows.cpu().numpy()
+    # the batch's results, best first: its distinct top-1 ids, then the
+    # next column's, ... up to 4,096 rows to delete
+    flat = ids["unfused"][:B].T.ravel()
+    flat = flat[flat >= 0]
+    _, first = np.unique(flat, return_index=True)
+    dead = flat[np.sort(first)][:B]
+    for name, fn in (
+            ("filtered", lambda: deploy_filtered(
+                vec_np, graph, queries, rows_np, rng, paths, ids, dev)),
+            ("mutations", lambda: deploy_mutations(
+                vec_np, graph, queries, dead, rng, paths)),
+            ("lsh_apg", lambda: deploy_lsh_apg(vec_np, graph, queries, paths,
+                                               ids)),
+            ("consolidate", lambda: deploy_consolidate(
+                vec_np[:n96], graph96, queries, rng, paths))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"phase deployment {name}: {out[name]['seconds']:.1f} s",
+              flush=True)
     out["launches"] = paths
     out["max_memory_allocated_gb"] = max(peak["unfused"], peak["fused"])
     out["pq_max_memory_allocated_gb"] = max(peak["pq_unfused"],
@@ -849,6 +1225,201 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
     check(np.array_equal(ids[f"pq{PQ_M_WIDE}_unfused"],
                          ids[f"pq{PQ_M_WIDE}_fused"]),
           f"IndexSpec(pq={PQ_M_WIDE}): fused and unfused ids differ")
+    return out
+
+
+def stitched_shape(global_adj, labels, rng, label_degree=32):
+    """A stitched-shaped adjacency over random regular graphs: the global
+    rows, then each label's own random regular subgraph of
+    ``label_degree`` remapped to global ids in the slack columns, laid
+    out as ``core.filters.build_stitched_graph`` lays them (edges a row
+    already has are skipped, the rest fill its free slots in order)."""
+    from repro_torch.core.vamana import _random_regular_init
+    n, rg = global_adj.shape
+    out = np.full((n, rg + label_degree), -1, np.int32)
+    out[:, :rg] = global_adj
+    earlier = np.tril(np.ones((label_degree, label_degree), bool), -1)
+    for lbl in range(int(labels.max()) + 1):
+        idx = np.nonzero(labels == lbl)[0]
+        if idx.size < 2:
+            continue
+        sub = _random_regular_init(idx.size, label_degree, rng)
+        for lo in range(0, idx.size, 16384):
+            rows = idx[lo: lo + 16384]
+            cand = idx[sub[lo: lo + 16384]]                     # global ids
+            dup = ((cand[:, :, None] == global_adj[rows][:, None, :]).any(2)
+                   | ((cand[:, :, None] == cand[:, None, :])
+                      & earlier[None]).any(2))
+            keep = ~dup
+            pos = np.cumsum(keep, 1) - 1
+            r, c = np.nonzero(keep)
+            out[rows[r], rg + pos[r, c]] = cand[r, c]
+    return out
+
+
+def deploy_filtered(vec_np, graph, queries, rows, rng, paths, ids, dev):
+    """1,000,000 x 768 filtered: 16 random labels, a stitched-shaped
+    adjacency (1M, 64 + 32), entries from ``label_entry_points``, each
+    query filtered to the label of the row it was drawn from; 4 batches
+    of 4,096 under both backends.  Every id satisfies its predicate and
+    fused ids equal unfused ids."""
+    from repro_torch import db
+    from repro_torch.core.filters import label_entry_points
+    t0 = time.perf_counter()
+    labels = rng.integers(0, N_LABELS, N).astype(np.int32)
+    adj = stitched_shape(graph[0], labels, rng)
+    entries = label_entry_points(vec_np, labels, N_LABELS)
+    out = dict(setup_s=time.perf_counter() - t0,
+               adjacency_mb=adj.nbytes / 1e6)
+    fl = labels[rows]
+    for hb in ("unfused", "fused"):
+        def drive(hb=hb):
+            d = db.create(db.IndexSpec(dim=D, degree=64, filters=True,
+                                       hop_backend=hb), vec_np, labels,
+                          prebuilt=(adj, graph[1], entries))
+            ms, got = [], []
+            for i in range(4):
+                sl = slice(i * B, (i + 1) * B)
+                t0 = time.perf_counter()
+                got.append(d.search(queries[sl], k=10, beam_width=16,
+                                    max_iters=64, filter_labels=fl[sl]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return d, ms, got
+
+        name = f"filtered_{hb}"
+        (d, ms, got), paths[name] = counted(drive)
+        want = expected_launches("catapult", hb,
+                                 [int(r.stats.hops.max()) for r in got],
+                                 filtered=True)
+        check(paths[name] == want, f"deployment width {name}: launched "
+                                   f"{paths[name]}, its batches imply {want}")
+        ids[name] = np.concatenate([r.ids for r in got])
+        bad = off_label(ids[name], fl, labels)
+        out[hb] = dict(batch_ms=ms, batch_ms_mean=float(np.mean(ms)),
+                       mean_hops=float(np.mean([r.stats.hops.mean()
+                                                for r in got])),
+                       loop_iterations=float(np.mean(
+                           [r.stats.hops.max() for r in got])),
+                       used=float(np.mean([r.stats.used.mean()
+                                           for r in got])),
+                       off_label_ids=bad,
+                       one_batch=idle_share(d, queries[:B], k=10,
+                                            beam_width=16, max_iters=64,
+                                            filter_labels=fl[:B]))
+        check(bad == 0, f"deployment width {name}: {bad} ids off their "
+                        f"lane's label")
+        del d
+    check(np.array_equal(ids["filtered_unfused"], ids["filtered_fused"]),
+          "deployment width filtered: fused and unfused ids differ")
+    print(f"deployment filtered: {out}")
+    return out
+
+
+def deploy_mutations(vec_np, graph, queries, dead, rng, paths):
+    """1,000,000 x 768: ``upsert`` one batch of ``DEPLOY_UPSERT`` rows
+    (timed; its searches on the gather-distance kernel alone), ``delete``
+    4,096 result ids of a published batch of 4,096 (its top-1 ids
+    first), then the same batch again: no dead id returned, none left in
+    a bucket."""
+    from repro_torch import db
+    print(f"reduced: the upsert at {N:,} x {D} takes {DEPLOY_UPSERT} rows, "
+          f"not 256: host RobustPrune of an insert's ~8,000 scored "
+          f"candidates at d={D} takes ~0.7 s a row", flush=True)
+    d = db.create(db.IndexSpec(dim=D, degree=64,
+                               spare_capacity=DEPLOY_UPSERT),
+                  vec_np, prebuilt=graph)
+    new = (vec_np[rng.integers(0, N, DEPLOY_UPSERT)]
+           + 0.1 * rng.normal(size=(DEPLOY_UPSERT, D))).astype(np.float32)
+    d.search(queries[:B], k=10, beam_width=16, max_iters=64)
+    t0 = time.perf_counter()
+    gids, paths["deployment_mutation_upsert"] = counted(lambda: d.upsert(new))
+    out = dict(insert_s=time.perf_counter() - t0, inserted=int(gids.size))
+    up = paths["deployment_mutation_upsert"]
+    check(up["gather_distance"] > 0
+          and sum(up.values()) == up["gather_distance"],
+          f"deployment width: the insert searches launched {up}")
+    t0 = time.perf_counter()
+    _, paths["deployment_mutation_delete"] = counted(lambda: d.delete(dead))
+    out.update(delete_s=time.perf_counter() - t0, deleted=int(dead.size))
+    check(not any(paths["deployment_mutation_delete"].values()),
+          "deployment width: delete launched a kernel")
+    r, paths["deployment_mutation_search"] = counted(
+        lambda: d.search(queries[:B], k=10, beam_width=16, max_iters=64))
+    want = expected_launches("catapult", "unfused", [int(r.stats.hops.max())])
+    check(paths["deployment_mutation_search"] == want,
+          f"deployment width: the search after delete launched "
+          f"{paths['deployment_mutation_search']}, its batch implies {want}")
+    out["dead_returned"] = int(np.isin(r.ids, dead).sum())
+    out["dead_in_buckets"] = int(np.isin(
+        d.backend._cat.buckets.ids.cpu().numpy(), dead).sum())
+    print(f"deployment mutations: {out}")
+    check(out["dead_returned"] == 0 and out["dead_in_buckets"] == 0,
+          f"deployment width: dead ids came back after delete: {out}")
+    return out
+
+
+def deploy_lsh_apg(vec_np, graph, queries, paths, ids):
+    """1,000,000 x 768 ``mode='lsh_apg'``: the build hashes every row (one
+    ``lsh_hash`` launch), then 4 batches of 4,096 under both backends;
+    fused ids equal unfused ids."""
+    from repro_torch import db
+    out = {}
+    for hb in ("unfused", "fused"):
+        t0 = time.perf_counter()
+        d, paths[f"lsh_apg_build_{hb}"] = counted(lambda hb=hb: db.create(
+            db.IndexSpec(dim=D, degree=64, mode="lsh_apg", hop_backend=hb),
+            vec_np, prebuilt=graph))
+        build_s = time.perf_counter() - t0
+        check(paths[f"lsh_apg_build_{hb}"] == dict(
+                  expected_launches("diskann", hb, []), lsh_hash=1),
+              f"deployment width: the lsh_apg build launched "
+              f"{paths[f'lsh_apg_build_{hb}']}, not one lsh_hash")
+        name = f"deployment_lsh_apg_{hb}"
+        got, paths[name] = counted(lambda d=d: [
+            d.search(queries[i * B: (i + 1) * B], k=10, beam_width=16,
+                     max_iters=64) for i in range(4)])
+        want = expected_launches("lsh_apg", hb,
+                                 [int(r.stats.hops.max()) for r in got])
+        check(paths[name] == want, f"{name}: launched {paths[name]}, its "
+                                   f"batches imply {want}")
+        ids[name] = np.concatenate([r.ids for r in got])
+        filled = int((d.backend._apg.table >= 0).sum())
+        out[hb] = dict(create_s=build_s, table_entries=filled,
+                       mean_hops=float(np.mean([r.stats.hops.mean()
+                                                for r in got])))
+        del d
+    check(np.array_equal(ids["deployment_lsh_apg_unfused"],
+                         ids["deployment_lsh_apg_fused"]),
+          "deployment width lsh_apg: fused and unfused ids differ")
+    print(f"deployment lsh_apg: {out}")
+    return out
+
+
+def deploy_consolidate(vec, graph, queries, rng, paths):
+    """``consolidate`` at 20,000 x 768 (the pq=96 slice and its graph)
+    after deleting 256 random rows: no live row keeps an edge to a dead
+    one, the dead rows lose theirs, and a batch returns no dead id."""
+    from repro_torch import db
+    print(f"reduced: consolidate runs at {vec.shape[0]:,} x {D} (the pq=96 "
+          f"phase's slice), not at {N:,} rows: host RobustPrune over every "
+          f"repaired row is beyond a smoke run there", flush=True)
+    d = db.create(db.IndexSpec(dim=D, degree=32), vec, prebuilt=graph)
+    dead = rng.choice(vec.shape[0], 256, replace=False)
+    d.delete(dead)
+    t0 = time.perf_counter()
+    repaired, paths["deployment_consolidate"] = counted(d.consolidate)
+    out = dict(rows=vec.shape[0], deleted=256, repaired_rows=repaired,
+               consolidate_s=time.perf_counter() - t0)
+    check(not any(paths["deployment_consolidate"].values()),
+          "consolidate launched a kernel")
+    adj = d.backend._adj_np
+    r = d.search(queries[:256], k=10, beam_width=16, max_iters=64)
+    out["dead_edges"] = int(np.isin(adj, dead).sum())
+    out["dead_returned"] = int(np.isin(r.ids, dead).sum())
+    print(f"deployment consolidate: {out}")
+    check(repaired > 0 and out["dead_edges"] == 0
+          and (adj[dead] == -1).all() and out["dead_returned"] == 0,
+          f"consolidate left dead rows reachable: {out}")
     return out
 
 
@@ -873,6 +1444,7 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
 
+    t_run = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -889,6 +1461,10 @@ def main() -> int:
     kernels.update(phase_pq_kernels(gen, dev))
     kernels["l2_distance"] = phase_l2_distance(vectors, dev)
     main_path = phase_main_path(args.seed, dev)
+    t0 = time.perf_counter()
+    filtered = phase_filtered(dev)
+    filtered["seconds"] = time.perf_counter() - t0
+    print(f"phase filtered: {filtered['seconds']:.1f} s", flush=True)
     deploy = phase_deployment(vectors, gen, args.seed, dev,
                               {k: v["ms"] for k, v in kernels.items()})
 
@@ -900,7 +1476,11 @@ def main() -> int:
                                    "gather_distance.py:35"),
                "l2_distance": ("l2_distance.cu", "l2_distance.py:35")}
     by_path = {**main_path["launches"], **main_path["pq"]["launches"],
-               **{f"deployment_{name}": n
+               **main_path["mutations"]["launches"],
+               **main_path["modes"]["launches"], **filtered["launches"],
+               **filtered["pq"]["launches"],
+               **{name if name.startswith("deployment_")
+                  else f"deployment_{name}": n
                   for name, n in deploy["launches"].items()}}
     line = {"kernels": [
         {"name": name, "route": "cuda",
@@ -916,12 +1496,14 @@ def main() -> int:
          **({"bound_f32_ms": kernels[name]["bound_f32_ms"]}
             if "bound_f32_ms" in kernels[name] else {})}
         for name, (src, tpu) in sources.items()]}
+    print(f"run seconds: {time.perf_counter() - t_run:.1f}", flush=True)
     if args.out:
         ptxas = {p.stem: p.read_text() for p in build_dir.glob("*.log")}
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels,
-             "main_path": main_path, "deployment": deploy, "ptxas": ptxas,
+             "main_path": main_path, "filtered": filtered,
+             "deployment": deploy, "ptxas": ptxas,
              "kernels_line": line}, indent=1, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

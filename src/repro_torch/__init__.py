@@ -4,12 +4,14 @@ A second package beside ``repro`` (the JAX/Pallas reference), with the
 same layout so each module's counterpart is easy to find:
 
 * ``core/``    — beam search (Algorithm 1), LSH, catapult buckets,
-                 Algorithm 2, the Vamana build and the RAM-tier engine,
+                 Algorithm 2, the Vamana build, filters, FreshVamana
+                 updates, LSH-APG and the RAM-tier engine,
 * ``kernels/`` — hand-written Hopper kernels (``csrc/*.cu``), their
                  plain PyTorch versions (``ref.py``) and the wrappers
                  (``ops.py``) that pick one by the device of the tensors,
 * ``db/``      — the ``create``/``Database`` facade (RAM tier),
 * ``obs/``     — metrics registry and explain traces,
+* ``ingest/``  — the caller-key map behind keyed upserts,
 * ``data/``    — synthetic workloads.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks

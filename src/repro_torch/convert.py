@@ -10,8 +10,12 @@ port's state on a given device:
 * the PQ codebook: (M, K, ds) centroids, installed with
   ``VectorSearchEngine._init_aux(vectors, pq_codebook=)`` as the
   reference's disk reopen installs its persisted one,
+* the LSH-APG index: hyperplanes + the (2**L, m) bucket table, set as
+  the engine's ``_apg``,
 * the graph needs no helper: pass ``prebuilt=(adjacency, medoid)`` to
-  ``repro_torch.db.create``.
+  ``repro_torch.db.create``; a filtered graph crosses as
+  ``prebuilt=(adjacency, medoid, label_entries)``, with the per-row
+  labels as a numpy array (``create(spec, vectors, labels, ...)``).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import torch
 from repro_torch.core import buckets as bk
 from repro_torch.core.catapult import CatapultState
 from repro_torch.core.lsh import LSHParams
+from repro_torch.core.lsh_apg import LshApgIndex
 from repro_torch.core.pq import PQCodebook
 from repro_torch.device import resolve_device
 
@@ -39,3 +44,13 @@ def pq_codebook_from_numpy(centroids: np.ndarray, device="cuda") -> PQCodebook:
     device = resolve_device(device)
     return PQCodebook(centroids=torch.tensor(
         np.asarray(centroids, np.float32), device=device))
+
+
+def lsh_apg_index_from_numpy(hyperplanes: np.ndarray, table: np.ndarray,
+                             device="cuda") -> LshApgIndex:
+    """(n_bits, d) hyperplanes + (2**n_bits, m) int32 table -> LshApgIndex."""
+    device = resolve_device(device)
+    return LshApgIndex(
+        lsh=LSHParams(hyperplanes=torch.tensor(
+            np.asarray(hyperplanes, np.float32), device=device)),
+        table=torch.tensor(np.asarray(table, np.int32), device=device))

@@ -20,7 +20,11 @@ Differences from the reference, none of them observable in the results:
 * Inactive lanes feed all -1 neighbor rows on both bodies (the reference
   does so on the fused body only); their outputs are discarded either
   way, and -1 rows cost no loads.
-* Filtered traversal (``neighbor_mask_fn``) is not ported yet.
+* ``neighbor_mask_fn`` is batched too: ``(lanes (B,), ids (B, M)) ->
+  (B, M)`` bool.  The distance call gets the masked ids as -1, so a
+  node that fails the predicate reads no row; its distance is +inf
+  either way, and ``_merge`` still sees its id, so it counts in
+  ``ndists`` exactly as in the reference.
 """
 from __future__ import annotations
 
@@ -121,10 +125,16 @@ def beam_search(
     spec: SearchSpec,
     dist_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
     *,
+    neighbor_mask_fn: Optional[Callable[[torch.Tensor, torch.Tensor],
+                                        torch.Tensor]] = None,
     result_mask_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> SearchResult:
     """Batched Algorithm 1.
 
+    ``neighbor_mask_fn``: (lanes (B,), ids (B, M)) -> bool, False
+    excludes a node from the beam entirely (the filtered traversal
+    constraint); a mask keeps the search on the composed hop, as the
+    fused kernels model no predicate.
     ``result_mask_fn``: (B, L) ids -> bool, False excludes a node from
     *results* only (tombstoned nodes remain traversable).
     Returns a SearchResult; ``trace`` records expansion order.
@@ -132,8 +142,18 @@ def beam_search(
     b = queries.shape[0]
     l, max_iters = spec.beam_width, spec.max_iters
     dev = queries.device
-    use_fused = getattr(dist_fn, "is_fused_hop", False)
+    use_fused = (getattr(dist_fn, "is_fused_hop", False)
+                 and neighbor_mask_fn is None)
     lane = torch.arange(b, device=dev)
+
+    def masked_dists(ids):
+        """Composed distances of (B, M) ids: +inf for -1 and for ids the
+        mask rejects (those are passed on as -1, so no row is read)."""
+        if neighbor_mask_fn is None:
+            return torch.where(ids < 0, torch.inf, dist_fn(queries, ids))
+        keep = neighbor_mask_fn(lane, ids)
+        d = dist_fn(queries, torch.where(keep, ids, INVALID))
+        return torch.where(keep & (ids >= 0), d, torch.inf)
 
     empty_ids = torch.full((b, l), INVALID, dtype=torch.int32, device=dev)
     empty_d = torch.full((b, l), torch.inf, device=dev)
@@ -143,9 +163,8 @@ def beam_search(
         ids, dists, exp, n0 = dist_fn.hop_batch(queries, start_ids, empty_ids,
                                                 empty_d, empty_exp)
     else:
-        d0 = torch.where(start_ids < 0, torch.inf, dist_fn(queries, start_ids))
         ids, dists, exp, n0 = _merge(empty_ids, empty_d, empty_exp,
-                                     start_ids, d0)
+                                     start_ids, masked_dists(start_ids))
     r = adjacency.shape[1]
     scored_shape = (b, max_iters, r) if spec.record_scored else (b, 1, 1)
     s = BeamState(
@@ -172,8 +191,8 @@ def beam_search(
             nids, ndsts, nexp, nfresh = dist_fn.hop_batch(
                 queries, nbrs, s.ids, s.dists, exp2)
         else:
-            nd = torch.where(nbrs < 0, torch.inf, dist_fn(queries, nbrs))
-            nids, ndsts, nexp, nfresh = _merge(s.ids, s.dists, exp2, nbrs, nd)
+            nids, ndsts, nexp, nfresh = _merge(s.ids, s.dists, exp2, nbrs,
+                                               masked_dists(nbrs))
         act = active[:, None]
         # trace/scored columns are written in place: only this loop holds them
         s.trace[:, s.it] = torch.where(active, node, INVALID)

@@ -7,13 +7,14 @@ Port of ``repro/core/catapult.py``.  Per query batch:
   2. gather each bucket's catapult destinations and append the graph
      medoid (the fallback that guarantees the unmodified-DiskANN
      baseline, §3.2 "Competitive recall"),
-  3. run the unchanged beam search with that starting set,
-  4. publish each query's best neighbor back to its bucket (LRU evict).
+  3. filtered lanes drop destinations whose label fails the predicate
+     (§3.4) and fall back to their label's entry point instead,
+  4. run the unchanged beam search with that starting set,
+  5. publish each query's best neighbor back to its bucket (LRU evict),
+     tagged with the lane's filter.
 
 "used" = the bucket supplied at least one valid destination; "won" = some
 catapult start is strictly closer to the query than the fallback.
-Filtered search (§3.4: label-checked destinations, per-label entry
-points) is not ported yet.
 """
 from __future__ import annotations
 
@@ -59,28 +60,44 @@ def catapulted_lookup(
     medoid: int,
     *,
     filter_labels: Optional[torch.Tensor] = None,   # (B,) int32, -1 = unfiltered
-    node_labels: Optional[torch.Tensor] = None,
-    label_entry: Optional[torch.Tensor] = None,
+    node_labels: Optional[torch.Tensor] = None,     # (N,) int32
+    label_entry: Optional[torch.Tensor] = None,     # (n_labels,) entry points
+    neighbor_mask_fn=None,
     result_mask_fn=None,
     publish_mask: Optional[torch.Tensor] = None,    # (B,) bool, False = don't publish
 ) -> tuple[CatapultState, SearchResult, CatapultStats]:
     """One batch of Algorithm 2.  Returns (new state, results, stats)."""
-    if node_labels is not None or label_entry is not None:
-        raise NotImplementedError(
-            "filtered catapult search is not ported yet (ROADMAP queue 1, "
-            "item 5: core/filters.py)")
     b = queries.shape[0]
     dev = queries.device
     hashes = lsh_mod.hash_codes(state.lsh, queries)           # (B,)
-    # unfiltered lanes accept every destination: empty slots are already -1
-    cat_sp, _ = bk.lookup(state.buckets, hashes)              # (B, cap)
+    cat_ids, _ = bk.lookup(state.buckets, hashes)             # (B, cap)
     if filter_labels is None:
         filter_labels = torch.full((b,), INVALID, dtype=torch.int32,
                                    device=dev)
-    fallback = torch.full((b, 1), medoid, dtype=torch.int32, device=dev)
+    flt = filter_labels[:, None]
+
+    # a destination is valid only if it satisfies the lane's predicate
+    # (§3.4); unfiltered lanes accept everything (empty slots are -1)
+    cat_sp = cat_ids
+    if node_labels is not None:
+        dest = torch.where(cat_ids >= 0,
+                           node_labels[cat_ids.clamp(min=0).long()], INVALID)
+        valid = (cat_ids >= 0) & ((flt < 0) | (dest == flt))
+        cat_sp = torch.where(valid, cat_ids, INVALID)
+
+    # fallback: the global medoid, or the label's entry point for
+    # filtered lanes (FilteredVamana)
+    if label_entry is not None:
+        fallback = torch.where(
+            filter_labels >= 0,
+            label_entry[filter_labels.clamp(min=0).long()], medoid)
+    else:
+        fallback = torch.full((b,), medoid, dtype=torch.int32, device=dev)
+    fallback = fallback.to(torch.int32)[:, None]
     starts = torch.cat([cat_sp, fallback], 1)
 
     result = beam_search(adjacency, queries, starts, spec, dist_fn,
+                         neighbor_mask_fn=neighbor_mask_fn,
                          result_mask_fn=result_mask_fn)
 
     used = (cat_sp >= 0).any(1)

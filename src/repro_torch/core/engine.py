@@ -6,16 +6,22 @@ one index + one acceleration mode:
 * ``mode='diskann'``   — vanilla Vamana beam search from the medoid
                          (the paper's primary baseline),
 * ``mode='catapult'``  — CatapultDB: LSH-bucketed shortcut layer
-                         (the paper's contribution).
+                         (the paper's contribution),
+* ``mode='lsh_apg'``   — static data-side LSH entry points (baseline).
 
-``pq_subspaces=M`` traverses with DiskANN's PQ-approximate distances and
-reranks the whole final beam at full precision.
+Orthogonal features, composable with every mode as in the reference:
+
+* ``build(labels=, n_labels=)`` — FilteredVamana stitched graph,
+  per-label entry points and predicate-constrained traversal,
+* ``pq_subspaces=M`` — DiskANN's PQ traversal distances with a
+  full-precision rerank of the final beam,
+* ``insert``/``delete``/``consolidate`` — FreshVamana online updates
+  (tombstones), and ``search_two_phase``.
 
 The search path runs on the engine's ``device`` (the card by default);
-the host keeps numpy mirrors for graph surgery (build).  Not ported yet,
-and raising ``NotImplementedError`` naming their ROADMAP item:
-``mode='lsh_apg'``, filtered search (labels),
-``insert``/``delete``/``consolidate`` and ``search_two_phase``.
+the host keeps numpy mirrors for graph surgery (build, insert,
+consolidate).  An insert writes only the rows it touched back to the
+device; a consolidate uploads the adjacency whole.
 """
 from __future__ import annotations
 
@@ -26,14 +32,17 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import buckets as bk
 from repro_torch.core import catapult as cat
+from repro_torch.core import filters as flt
+from repro_torch.core import insert as ins
+from repro_torch.core import lsh_apg as apg
 from repro_torch.core import pq as pq_mod
-from repro_torch.core.beam_search import SearchSpec, beam_search, l2_dist_fn
-from repro_torch.core.vamana import VamanaParams, build_vamana
+from repro_torch.core.beam_search import (SearchSpec, beam_search,
+                                          beam_search_l2, l2_dist_fn)
+from repro_torch.core.vamana import VamanaParams, build_vamana, medoid_index
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_hop import FusedL2Hop, FusedPQHop
-
-_ITEM5 = "ROADMAP queue 1, item 5 (core/engine.py beyond the RAM-tier main path)"
 
 
 class SearchStats(NamedTuple):
@@ -56,13 +65,23 @@ class RamStore:
                    np.full((capacity, degree), -1, np.int32))
 
 
-def brute_force_knn(vectors: np.ndarray, queries: np.ndarray,
-                    k: int) -> np.ndarray:
-    """Exact ground truth (chunked to bound memory)."""
+def brute_force_knn(vectors: np.ndarray, queries: np.ndarray, k: int,
+                    labels: np.ndarray | None = None,
+                    filter_labels: np.ndarray | None = None,
+                    exclude: np.ndarray | None = None) -> np.ndarray:
+    """Exact ground truth (chunked to bound memory).  ``filter_labels``
+    (with ``labels``) restricts each filtered lane (label >= 0) to its
+    label; ``exclude`` hides rows (e.g. tombstoned ones)."""
     out = np.zeros((queries.shape[0], k), np.int32)
     for lo in range(0, queries.shape[0], 256):
         q = queries[lo: lo + 256]
         d = ((q[:, None, :] - vectors[None, :, :]) ** 2).sum(-1)
+        if exclude is not None:
+            d[:, exclude] = np.inf
+        if filter_labels is not None and labels is not None:
+            fl = filter_labels[lo: lo + 256]
+            mism = (labels[None, :] != fl[:, None]) & (fl[:, None] >= 0)
+            d[mism] = np.inf
         out[lo: lo + 256] = np.argsort(d, axis=1)[:, :k]
     return out
 
@@ -81,25 +100,25 @@ class VectorSearchEngine:
     vamana: VamanaParams = dataclasses.field(default_factory=VamanaParams)
     n_bits: int = 8                 # L (paper default)
     bucket_capacity: int = 40       # b (paper default)
+    apg_entries: int = 8            # LSH-APG rows kept per bucket
     pq_subspaces: Optional[int] = None
     seed: int = 0
-    capacity: Optional[int] = None  # adjacency row preallocation
+    capacity: Optional[int] = None  # adjacency row preallocation for inserts
     # traversal hop implementation: "unfused" (gather-distance kernel +
     # torch merge) or "fused" (one fused-hop kernel per hop).  Results
-    # are bit-identical.
+    # are bit-identical; filtered searches always take the composed hop.
     hop_backend: str = 'unfused'
     device: object = 'cuda'
 
     # populated by build()
     n_active: int = 0
     medoid: int = 0
+    n_labels: int = 0
+    filtered: bool = False
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
-        if self.mode == 'lsh_apg':
-            raise NotImplementedError(f"mode='lsh_apg' is not ported yet "
-                                      f"({_ITEM5}: core/lsh_apg.py)")
-        if self.mode not in ('catapult', 'diskann'):
+        if self.mode not in ('catapult', 'diskann', 'lsh_apg'):
             raise ValueError(f"unknown mode {self.mode!r}")
         if self.hop_backend not in ('unfused', 'fused'):
             raise ValueError(f"unknown hop_backend {self.hop_backend!r}")
@@ -107,19 +126,34 @@ class VectorSearchEngine:
     def build(self, vectors: np.ndarray, labels: np.ndarray | None = None,
               n_labels: int | None = None,
               prebuilt=None) -> 'VectorSearchEngine':
-        """prebuilt: optional (adjacency, medoid) — share one Vamana build
-        across engines (or carry the reference's graph across)."""
-        if labels is not None:
-            raise NotImplementedError(f"filtered search is not ported yet "
-                                      f"({_ITEM5}: core/filters.py)")
+        """prebuilt: optional (adjacency, medoid[, label_entries]) — share
+        one Vamana build across engines (or carry the reference's graph
+        across); a filtered engine takes all three."""
         vectors = np.ascontiguousarray(vectors, np.float32)
         n, d = vectors.shape
         cap = self.capacity or n
-        if prebuilt is not None:
-            adj, med = prebuilt[0], prebuilt[1]
+        self.filtered = labels is not None
+        if self.filtered:
+            if n_labels is None:
+                raise ValueError("labels need n_labels")
+            if prebuilt is not None:
+                adj, med, entries = prebuilt
+            else:
+                adj, med, entries = flt.build_stitched_graph(
+                    vectors, labels, n_labels, self.vamana,
+                    device=self.device)
+            self.n_labels = n_labels
+            self._label_entry_np = np.asarray(entries, np.int32).copy()
+            self._labels_np = np.zeros(cap, np.int32)
+            self._labels_np[:n] = labels.astype(np.int32)
         else:
-            adj, med = build_vamana(vectors, self.vamana, capacity=cap,
-                                    device=self.device)
+            if prebuilt is not None:
+                adj, med = prebuilt[0], prebuilt[1]
+            else:
+                adj, med = build_vamana(vectors, self.vamana, capacity=cap,
+                                        device=self.device)
+            self._label_entry_np = None
+            self._labels_np = None
         store = RamStore.allocate(cap, d, adj.shape[1])
         sv, sa = store.vectors, store.adjacency
         rows = min(adj.shape[0], cap)
@@ -140,23 +174,32 @@ class VectorSearchEngine:
 
     def _init_aux(self, vectors: np.ndarray,
                   pq_codebook: pq_mod.PQCodebook | None = None) -> None:
-        """Catapult LSH + buckets and the PQ codebook + codes,
-        deterministic in (seed, vectors).
+        """The mode's auxiliary state: catapult LSH + buckets, the
+        LSH-APG table, the PQ codebook + codes; deterministic in (seed,
+        vectors).
 
-        The hyperplanes come from a CPU ``torch.Generator`` seeded with
-        ``seed`` and the codebook's initial rows from a second one seeded
-        with ``seed + 1`` (the reference splits one ``jax.random`` key;
-        torch cannot replay it), so one seed gives the same state on the
-        CPU and on the card.  ``pq_codebook`` skips the training (a
-        carried-over codebook, as the reference's disk reopen passes its
-        persisted one); the codes are encoded from it either way."""
+        Each draw has a CPU ``torch.Generator`` of its own (the
+        reference splits one ``jax.random`` key; torch cannot replay
+        it): ``seed`` for the catapult hyperplanes, ``seed + 1`` for
+        the codebook's initial rows and ``seed + 2`` for the LSH-APG
+        hyperplanes, so one seed gives the same state on the CPU and on
+        the card.  ``pq_codebook`` skips the training (a carried-over
+        codebook, as the reference's disk reopen passes its persisted
+        one); the codes are encoded from it either way."""
+        x = None
         if self.mode == 'catapult':
             gen = torch.Generator().manual_seed(self.seed)
             self._cat = cat.make_catapult_state(
                 gen, vectors.shape[1], self.n_bits, self.bucket_capacity,
                 self.device)
-        if self.pq_subspaces:
+        elif self.mode == 'lsh_apg':
             x = torch.as_tensor(vectors, device=self.device)
+            gen = torch.Generator().manual_seed(self.seed + 2)
+            self._apg = apg.build_lsh_apg(x, gen, self.n_bits,
+                                          self.apg_entries, self.device)
+        if self.pq_subspaces:
+            if x is None:
+                x = torch.as_tensor(vectors, device=self.device)
             if pq_codebook is not None:
                 if pq_codebook.n_subspaces != self.pq_subspaces:
                     raise ValueError(
@@ -175,11 +218,23 @@ class VectorSearchEngine:
 
     # ---------------------------------------------------------------- device
     def _sync_device(self) -> None:
-        self._adj = torch.as_tensor(self._adj_np, device=self.device)
-        self._vec = torch.as_tensor(self._vec_np, device=self.device)
-        self._tomb = torch.as_tensor(self._tomb_np, device=self.device)
-        self._codes = (torch.as_tensor(self._codes_np, device=self.device)
-                       if self.pq_subspaces else None)
+        """Upload every host mirror whole (build, and after a codebook
+        or graph is carried over)."""
+        def up(a):
+            return None if a is None else torch.as_tensor(a,
+                                                          device=self.device)
+        self._adj = up(self._adj_np)
+        self._vec = up(self._vec_np)
+        self._tomb = up(self._tomb_np)
+        self._labels = up(self._labels_np)
+        self._label_entry = up(self._label_entry_np)
+        self._codes = up(self._codes_np) if self.pq_subspaces else None
+
+    def tombstone_fraction(self) -> float:
+        """Dead-row share of the active range — the maintainer's
+        background-consolidate trigger signal."""
+        n = int(self.n_active)
+        return float(self._tomb_np[:n].sum()) / n if n else 0.0
 
     # ---------------------------------------------------------------- search
     def search(self, queries: np.ndarray, k: int,
@@ -191,16 +246,16 @@ class VectorSearchEngine:
                ) -> tuple[np.ndarray, np.ndarray, SearchStats]:
         """Batched k-NN search.  Returns (ids (B,k), dists (B,k), stats).
 
+        ``filter_labels`` ((B,) int, -1 = unfiltered lane) constrains
+        each lane to its label on a filtered engine.
         ``publish_mask`` ((B,) bool) opts lanes out of the catapult
         bucket publish and usage stats.  ``trace`` is an optional
         ``repro_torch.obs.TraceRecorder``: the route and rerank stages
         are timed into it (each synced with the device).
         """
-        if filter_labels is not None:
-            raise NotImplementedError(f"filtered search is not ported yet "
-                                      f"({_ITEM5}: core/filters.py)")
         q = torch.as_tensor(np.ascontiguousarray(queries, np.float32),
                             device=self.device)
+        b = q.shape[0]
         l = beam_width or max(2 * k, 16)
         # PQ mode reranks the *entire* final beam at full precision
         # (DiskANN's fetch of the candidate list), so the search returns
@@ -210,10 +265,16 @@ class VectorSearchEngine:
         spec = SearchSpec(beam_width=l, k=(l if self.pq_subspaces else k),
                           max_iters=max_iters or (4 * l + 64),
                           hop_backend=self.hop_backend)
+        flabels = (torch.as_tensor(np.asarray(filter_labels, np.int32),
+                                   device=self.device)
+                   if filter_labels is not None
+                   else torch.full((b,), -1, dtype=torch.int32,
+                                   device=self.device))
         stage = trace.stage if trace is not None else (lambda _: nullcontext())
         sync = trace is not None and self.device.type == "cuda"
         with stage("route"):
-            res, used, won = self._dispatch(q, spec, publish_mask=publish_mask)
+            res, used, won = self._dispatch(q, flabels, spec,
+                                            publish_mask=publish_mask)
             if sync:
                 torch.cuda.synchronize(self.device)
         ids, dists = res.ids, res.dists
@@ -227,43 +288,155 @@ class VectorSearchEngine:
                             won=won)
         return ids.cpu().numpy(), dists.cpu().numpy(), stats
 
-    def _dispatch(self, queries: torch.Tensor, spec: SearchSpec,
-                  publish_mask=None):
+    def _dispatch(self, queries: torch.Tensor, flabels: torch.Tensor,
+                  spec: SearchSpec, publish_mask=None):
         """Run the mode's traversal; returns (raw result, used, won)."""
         b = queries.shape[0]
-        dist = _mk_dist(self._vec, spec.hop_backend,
-                        (self._pq, self._codes) if self.pq_subspaces
-                        else None)
+        pq = (self._pq, self._codes) if self.pq_subspaces else None
         if self.mode == 'catapult':
             pm = (None if publish_mask is None
                   else torch.as_tensor(np.asarray(publish_mask, bool),
                                        device=self.device))
             new_cat, res, st = _search_catapult(
-                self._cat, self._adj, dist, self._tomb, queries,
-                self.medoid, spec, pm)
+                self._cat, self._adj, self._vec, self._tomb, self._labels,
+                self._label_entry, queries, flabels, self.medoid, spec, pq,
+                pm)
             self._cat = new_cat
             return res, st.used.cpu().numpy(), st.won.cpu().numpy()
-        res = _search_diskann(self._adj, dist, self._tomb, queries,
-                              self.medoid, spec)
+        if self.mode == 'lsh_apg':
+            res = _search_apg(self._apg, self._adj, self._vec, self._tomb,
+                              self._labels, queries, flabels, self.medoid,
+                              spec)
+        else:
+            res = _search_diskann(self._adj, self._vec, self._tomb,
+                                  self._labels, self._label_entry, queries,
+                                  flabels, self.medoid, spec, pq)
         z = np.zeros(b, bool)
         return res, z, z
 
-    def search_two_phase(self, queries, k, beam_width=None, phase1_iters=8):
-        raise NotImplementedError(f"search_two_phase is not ported yet "
-                                  f"({_ITEM5})")
+    def search_two_phase(self, queries: np.ndarray, k: int,
+                         beam_width: int | None = None,
+                         phase1_iters: int = 8
+                         ) -> tuple[np.ndarray, np.ndarray, SearchStats]:
+        """Convergence-compacted search (beyond the paper).
+
+        A lockstep batch pays max(hops) while catapults cut the *mean*.
+        Phase 1 runs a short iteration budget for the whole batch, at
+        full precision and unfiltered; phase 2 warm-restarts only the
+        unconverged lanes from their phase-1 beams, without a result
+        mask (as in the reference, so it can return tombstoned ids).
+        The reference pads phase 2 to fixed chunks for its jit cache;
+        lanes are independent, so here it is one call over the
+        stragglers, with the same results.  ``used``/``won`` are the
+        phase-1 catapult stats.
+        """
+        queries = np.ascontiguousarray(queries, np.float32)
+        b = queries.shape[0]
+        q = torch.as_tensor(queries, device=self.device)
+        l = beam_width or max(2 * k, 16)
+        spec1 = SearchSpec(beam_width=l, k=l, max_iters=phase1_iters,
+                           hop_backend=self.hop_backend)
+        unfiltered = torch.full((b,), -1, dtype=torch.int32,
+                                device=self.device)
+        if self.mode == 'catapult':
+            new_cat, res, st = _search_catapult(
+                self._cat, self._adj, self._vec, self._tomb, None, None, q,
+                unfiltered, self.medoid, spec1, None)
+            self._cat = new_cat
+            used, won = st.used.cpu().numpy(), st.won.cpu().numpy()
+        else:
+            res = _search_diskann(self._adj, self._vec, self._tomb, None,
+                                  None, q, unfiltered, self.medoid, spec1,
+                                  None)
+            used = won = np.zeros(b, bool)
+        ids = res.ids.cpu().numpy()
+        dists = res.dists.cpu().numpy()
+        hops = res.hops.cpu().numpy()
+        ndists = res.ndists.cpu().numpy()
+        conv = res.converged.cpu().numpy()
+
+        if not conv.all():
+            idx = np.nonzero(~conv)[0]
+            spec2 = SearchSpec(beam_width=l, k=l, max_iters=4 * l + 64,
+                               hop_backend=self.hop_backend)
+            sel = torch.as_tensor(idx, device=self.device)
+            res2 = beam_search_l2(self._adj, self._vec, q[sel],
+                                  res.ids[sel].contiguous(), spec2)
+            ids[idx] = res2.ids.cpu().numpy()
+            dists[idx] = res2.dists.cpu().numpy()
+            hops[idx] += res2.hops.cpu().numpy()
+            ndists[idx] += res2.ndists.cpu().numpy()
+        order = np.argsort(dists, axis=1)[:, :k]
+        stats = SearchStats(hops=hops, ndists=ndists, used=used, won=won)
+        return (np.take_along_axis(ids, order, 1),
+                np.take_along_axis(dists, order, 1), stats)
 
     # ---------------------------------------------------------------- updates
-    def insert(self, new_vectors, labels=None):
-        raise NotImplementedError(f"insert is not ported yet ({_ITEM5}: "
-                                  f"core/insert.py)")
+    def insert(self, new_vectors: np.ndarray,
+               labels: np.ndarray | None = None) -> np.ndarray:
+        """FreshVamana batch insert; returns the assigned node ids.  Only
+        the rows the batch touched are written to the device."""
+        new_vectors = np.ascontiguousarray(new_vectors, np.float32)
+        start = self.n_active
+        self.n_active = ins.insert_batch(
+            self._adj_np, self._vec_np, self.n_active, new_vectors,
+            self.medoid, self.vamana, self._adj, self._vec)
+        new = slice(start, self.n_active)
+        self._tomb_np[new] = False
+        self._tomb[new] = False
+        if self._labels_np is not None:
+            self._labels_np[new] = labels if labels is not None else 0
+            self._labels[new] = torch.as_tensor(self._labels_np[new],
+                                                device=self.device)
+        if self.pq_subspaces:
+            codes = pq_mod.encode(self._pq, self._vec[new])
+            self._codes_np[new] = codes.cpu().numpy()
+            self._codes[new] = codes
+        return np.arange(start, self.n_active, dtype=np.int64)
 
-    def delete(self, ids) -> None:
-        raise NotImplementedError(f"delete is not ported yet ({_ITEM5}: "
-                                  f"core/insert.py)")
+    def insert_batch(self, new_vectors: np.ndarray,
+                     labels: np.ndarray | None = None) -> np.ndarray:
+        """Alias for :meth:`insert` — the mutable-tier spelling."""
+        return self.insert(new_vectors, labels)
+
+    def delete(self, ids: np.ndarray) -> None:
+        """Tombstone ``ids`` and repair what could still steer a query
+        onto them: catapult buckets drop the dead destinations, and a
+        tombstoned medoid / label entry point is re-elected among the
+        surviving nodes."""
+        ids = np.atleast_1d(np.asarray(ids, np.int64)).ravel()
+        ids = ids[ids >= 0]     # tolerate search()'s -1 padding lanes
+        if ids.size == 0:
+            return
+        self._tomb_np = ins.delete(self._tomb_np, ids)
+        self._tomb = torch.as_tensor(self._tomb_np, device=self.device)
+        if self.mode == 'catapult':
+            self._cat = dataclasses.replace(
+                self._cat, buckets=bk.evict_ids(self._cat.buckets, ids))
+        if self._tomb_np[self.medoid]:
+            self.medoid = self._elect_medoid()
+        if self.filtered:
+            self._label_entry_np = flt.refresh_label_entries(
+                self._label_entry_np, self._vec_np, self._labels_np,
+                self._tomb_np, self.n_active)
+            self._label_entry = torch.as_tensor(self._label_entry_np,
+                                                device=self.device)
+
+    def _elect_medoid(self) -> int:
+        """Deterministic medoid re-election over the live rows."""
+        live = (~self._tomb_np[: self.n_active]).nonzero()[0]
+        if live.size == 0:
+            return self.medoid
+        return int(live[medoid_index(self._vec_np[live])])
 
     def consolidate(self) -> int:
-        raise NotImplementedError(f"consolidate is not ported yet ({_ITEM5}: "
-                                  f"core/insert.py)")
+        """Splice tombstoned nodes out of the graph (FreshVamana
+        compaction); node ids stay stable.  Returns the number of
+        repaired rows."""
+        repaired = ins.consolidate(self._adj_np, self._vec_np,
+                                   self._tomb_np, self.n_active, self.vamana)
+        self._adj = torch.as_tensor(self._adj_np, device=self.device)
+        return repaired
 
 
 # ---------------------------------------------------------------------------
@@ -281,23 +454,49 @@ def _mk_dist(vec: torch.Tensor, hop_backend: str = 'unfused', pq=None):
     return pq_mod.adc_dist_fn(*pq) if pq else l2_dist_fn(vec)
 
 
-def _masks(tomb: torch.Tensor):
-    """The result mask hides tombstoned nodes (filters not ported yet)."""
+def _masks(tomb: torch.Tensor, labels, flabels):
+    """Traversal constraints: the predicate mask of a filtered engine
+    (``filters.make_filter_mask_fn``), and the result mask that hides
+    tombstoned nodes."""
     def result_mask(ids):
         return ~tomb[ids.clamp(min=0).long()]
-    return result_mask
+
+    neighbor_mask = (flt.make_filter_mask_fn(labels, flabels)
+                     if labels is not None else None)
+    return neighbor_mask, result_mask
 
 
-def _search_diskann(adj, dist, tomb, queries, medoid: int, spec: SearchSpec):
+def _search_diskann(adj, vec, tomb, labels, label_entry, queries, flabels,
+                    medoid: int, spec: SearchSpec, pq=None):
     b = queries.shape[0]
-    starts = torch.full((b, 1), medoid, dtype=torch.int32,
-                        device=queries.device)
-    return beam_search(adj, queries, starts, spec, dist,
-                       result_mask_fn=_masks(tomb))
+    if label_entry is not None:
+        starts = torch.where(flabels >= 0,
+                             label_entry[flabels.clamp(min=0).long()], medoid)
+    else:
+        starts = torch.full((b,), medoid, dtype=torch.int32,
+                            device=queries.device)
+    nmask, rmask = _masks(tomb, labels, flabels)
+    return beam_search(adj, queries, starts.to(torch.int32)[:, None], spec,
+                       _mk_dist(vec, spec.hop_backend, pq),
+                       neighbor_mask_fn=nmask, result_mask_fn=rmask)
 
 
-def _search_catapult(cat_state, adj, dist, tomb, queries, medoid: int,
-                     spec: SearchSpec, publish_mask=None):
+def _search_apg(apg_index, adj, vec, tomb, labels, queries, flabels,
+                medoid: int, spec: SearchSpec):
+    # LSH-APG traverses at full precision, with or without PQ codes
+    starts = apg.entry_points(apg_index, queries, medoid)
+    nmask, rmask = _masks(tomb, labels, flabels)
+    return beam_search(adj, queries, starts, spec,
+                       _mk_dist(vec, spec.hop_backend),
+                       neighbor_mask_fn=nmask, result_mask_fn=rmask)
+
+
+def _search_catapult(cat_state, adj, vec, tomb, labels, label_entry, queries,
+                     flabels, medoid: int, spec: SearchSpec, pq=None,
+                     publish_mask=None):
+    nmask, rmask = _masks(tomb, labels, flabels)
     return cat.catapulted_lookup(
-        cat_state, adj, queries, spec, dist, medoid,
-        result_mask_fn=_masks(tomb), publish_mask=publish_mask)
+        cat_state, adj, queries, spec, _mk_dist(vec, spec.hop_backend, pq),
+        medoid, filter_labels=flabels, node_labels=labels,
+        label_entry=label_entry, neighbor_mask_fn=nmask,
+        result_mask_fn=rmask, publish_mask=publish_mask)

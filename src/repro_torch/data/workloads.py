@@ -1,11 +1,14 @@
 """Synthetic evaluation workloads — a copy of the reference's generators.
 
 The port keeps its own copy of ``repro/data/workloads.py``'s
-``Workload``, ``_clustered_corpus`` and ``make_tripclick`` (numpy only),
-so the same seed gives the same corpus and queries in both packages.
+``Workload``, ``_clustered_corpus``, ``make_tripclick`` and
+``make_papers`` (numpy only), so the same seed gives the same corpus,
+labels and queries in both packages.
 
 tripclick — session random-walk over topic clusters: real user traffic's
 temporal locality (bursts of related queries) replayed in order.
+papers — a labeled corpus (label = cluster, the arXiv category) whose
+queries each carry their own category predicate (filtered search).
 Corpora are Gaussian cluster mixtures on a connected manifold; ambient
 d defaults to 24, the intrinsic-dimension regime of real text
 embeddings.
@@ -66,3 +69,16 @@ def make_tripclick(n=20_000, d=24, n_clusters=64, n_queries=4_096, seed=0,
                 break
     return Workload("tripclick", corpus,
                     np.asarray(qs, np.float32))
+
+
+def make_papers(n=20_000, d=24, n_labels=16, n_queries=2_048, seed=3):
+    """Labeled corpus; every query carries its own category predicate."""
+    rng = np.random.default_rng(seed)
+    # no background mass: every paper carries a category label
+    corpus, centers, assign = _clustered_corpus(n, d, n_labels, rng,
+                                                background=0.0)
+    labels = assign.astype(np.int32)       # cluster == arXiv category
+    qi = rng.integers(0, n_labels, n_queries)
+    qs = centers[qi] + 0.5 * rng.normal(size=(n_queries, d))
+    return Workload("papers", corpus, qs.astype(np.float32),
+                    labels=labels, filter_labels=qi.astype(np.int32))

@@ -1,12 +1,14 @@
 """The ``Database`` facade — RAM tier.
 
-Port of ``repro/db/database.py`` for this slice: ``search`` (a
+Port of ``repro/db/database.py`` for the RAM tier: ``search`` (a
 ``SearchRequest`` or a raw query array with keywords, per-request
-``publish``, ``explain=True`` traces), ``metrics``, ``warm``, ``close``,
-``n_active`` and ``dim``.  Every search passes an explicit all-True or
-all-False ``publish_mask``, as the reference's does.  The mutation,
-persistence and serving methods raise ``NotImplementedError`` naming
-the ROADMAP item that ports them.
+``publish`` and ``filter_labels``, ``explain=True`` traces),
+``upsert`` (with ``keys=`` for a true upsert), ``delete`` (by id or by
+key), ``consolidate``, ``metrics``, ``warm``, ``close`` and the host
+views.  Every search passes an explicit all-True or all-False
+``publish_mask``, as the reference's does.  The persistence and
+serving methods raise ``NotImplementedError`` naming, by title, the
+ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 
 from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec,
                                  SearchRequest, SearchResult)
+from repro_torch.ingest.keys import KeyMap
 from repro_torch.obs import MetricsRegistry, TraceRecorder, build_search_trace
 
 # batch-mean hop counts per search — graph-walk lengths, not latencies
@@ -37,6 +40,7 @@ class Database:
         self.spec = spec
         self.caps = caps
         self.last_warm_ms: Optional[float] = None
+        self.keys = KeyMap()         # caller keys <-> gids
         self.registry = MetricsRegistry(enabled=spec.metrics)
         reg = self.registry
         self._m_requests = reg.counter("catapultdb_search_requests_total")
@@ -47,6 +51,17 @@ class Database:
                                      edges=_HOP_EDGES)
         self._m_used = reg.counter("catapultdb_catapult_used_total")
         self._m_won = reg.counter("catapultdb_catapult_won_total")
+        self._m_ing_rows = reg.counter("catapultdb_ingest_rows_total")
+        self._m_ing_batches = reg.counter("catapultdb_ingest_batches_total")
+        self._m_ing_reupserts = reg.counter(
+            "catapultdb_ingest_reupserts_total")
+        self._m_ing_deletes = reg.counter("catapultdb_ingest_deletes_total")
+        if reg.enabled:
+            # holds the map, not the database, so that dropping the last
+            # reference to a database frees its tables at once
+            keys = self.keys
+            reg.register_collector(lambda: {
+                "catapultdb_ingest_keys": float(len(keys))})
 
     def _record_search(self, batch: int, ms: float, stats,
                        explained: bool) -> None:
@@ -121,8 +136,8 @@ class Database:
         timed = explain or self.registry.enabled
         t0 = time.perf_counter() if timed else 0.0
         ids, dists, stats = self.backend.search(
-            q, k=kk, beam_width=bw, max_iters=request.max_iters,
-            publish_mask=mask, trace=recorder)
+            q, k=kk, beam_width=bw, filter_labels=request.filter_labels,
+            max_iters=request.max_iters, publish_mask=mask, trace=recorder)
         total_ms = (time.perf_counter() - t0) * 1e3 if timed else 0.0
         if self.registry.enabled:
             self._record_search(q.shape[0], total_ms, stats, explain)
@@ -130,8 +145,73 @@ class Database:
             return build_search_trace(
                 ids=ids, dists=dists, stats=stats, tier=self.caps.tier,
                 mode=self.backend.mode, k=kk, beam_width=bw,
-                filter_labels=None, recorder=recorder, total_ms=total_ms)
+                filter_labels=request.filter_labels, recorder=recorder,
+                total_ms=total_ms)
         return SearchResult(ids=ids, dists=dists, stats=stats)
+
+    # ---------------------------------------------------------------- mutate
+    def upsert(self, vectors: np.ndarray,
+               labels: Optional[np.ndarray] = None, *,
+               keys=None) -> np.ndarray:
+        """Insert a batch; returns the assigned ids in caller order
+        (stable forever).
+
+        ``keys``: caller-chosen row identities (all-int or all-str per
+        database, one per row).  A key already present performs a true
+        upsert: the new row is inserted, then the old row tombstoned, so
+        ``search`` never returns both versions and the key is never
+        absent mid-upsert.  A filtered database needs ``labels``."""
+        self._need("mutable", "upsert()")
+        if labels is not None and not self.caps.filtered:
+            raise CapabilityError("labels on an unfiltered index")
+        if labels is None and self.caps.filtered:
+            # the engine would tag the rows label 0 and pollute that
+            # label's filtered results
+            raise ValueError("a filtered index needs labels on upsert()")
+        vectors = np.ascontiguousarray(vectors, np.float32)
+        if vectors.ndim == 1:
+            vectors = vectors[None, :]
+        b = vectors.shape[0]
+        if keys is not None and len(keys) != b:
+            raise ValueError(f"{len(keys)} keys for {b} rows")
+        gids = np.asarray(self.backend.insert_batch(vectors, labels),
+                          np.int64)
+        replaced = 0
+        if keys is not None:
+            old = self.keys.assign(keys, gids)
+            stale = old[old >= 0]
+            if stale.size:
+                # true upsert: the replaced rows die after the new ones
+                # landed
+                self.backend.delete(stale)
+                replaced = int(stale.size)
+        if self.registry.enabled:
+            self._m_ing_rows.inc(b)
+            self._m_ing_batches.inc()
+            if replaced:
+                self._m_ing_reupserts.inc(replaced)
+        return gids
+
+    def delete(self, ids: Optional[np.ndarray] = None, *,
+               keys=None) -> None:
+        """Tombstone rows by gid, or by caller key (exactly one of
+        ``ids``/``keys``; unknown keys raise ``KeyError``).  Catapult
+        buckets drop the dead destinations; the medoid and label
+        entries are re-elected as needed."""
+        self._need("mutable", "delete()")
+        if (ids is None) == (keys is None):
+            raise TypeError("delete() takes exactly one of ids= or keys=")
+        if keys is not None:
+            ids = self.keys.drop(keys)
+        self.backend.delete(ids)
+        if self.registry.enabled:
+            self._m_ing_deletes.inc(int(np.asarray(ids).size))
+
+    def consolidate(self) -> int:
+        """FreshVamana compaction pass; returns the repaired row count."""
+        self._need("mutable", "consolidate()")
+        return self.backend.consolidate()
+
 
     def warm(self, batch_shapes=None, *, k: Optional[int] = None,
              beam_width: Optional[int] = None) -> float:
@@ -167,27 +247,45 @@ class Database:
     def dim(self) -> int:
         return int(self.backend._vec_np.shape[1])
 
-    # ------------------------------------------------ not in this slice yet
-    def upsert(self, vectors, labels=None, *, keys=None):
-        _not_ported("upsert", "ROADMAP queue 1, items 5 and 10")
+    @property
+    def n_labels(self) -> int:
+        return int(getattr(self.backend, "n_labels", 0))
 
-    def delete(self, ids=None, *, keys=None):
-        _not_ported("delete", "ROADMAP queue 1, item 5")
+    @property
+    def vectors(self) -> np.ndarray:
+        """Host view of the active rows (``caps.host_views``)."""
+        self._need("host_views", "db.vectors")
+        return self.backend._vec_np[: self.backend.n_active]
 
-    def consolidate(self):
-        _not_ported("consolidate", "ROADMAP queue 1, item 5")
+    @property
+    def tombstones(self) -> np.ndarray:
+        """Tombstone flags of the active rows (``caps.host_views``)."""
+        self._need("host_views", "db.tombstones")
+        return self.backend._tomb_np[: self.backend.n_active]
 
+    def _need(self, cap: str, op: str) -> None:
+        """Raise ``CapabilityError`` naming the tier when ``caps`` lacks
+        ``cap``."""
+        if not getattr(self.caps, cap):
+            raise CapabilityError(
+                f"{op} needs the {cap!r} capability, which the "
+                f"{self.caps.tier!r} tier of this database lacks")
+
+    # ------------------------------------------------ not in the port yet
     def save(self):
-        _not_ported("save", "ROADMAP queue 1, item 8 (persistent tiers)")
+        _not_ported("save", "ROADMAP queue 1, item 'Disk tier'")
 
     def serve(self, **kwargs):
-        _not_ported("serve", "ROADMAP queue 1, item 7")
+        _not_ported("serve", "ROADMAP queue 1, item 'Serving front end "
+                             "and adapt/'")
 
     def attach_maintainer(self, policy=None, tick_every=None):
-        _not_ported("attach_maintainer", "ROADMAP queue 1, item 7")
+        _not_ported("attach_maintainer", "ROADMAP queue 1, item 'Serving "
+                                         "front end and adapt/'")
 
     def ingest_queue(self, batch_size=None):
-        _not_ported("ingest_queue", "ROADMAP queue 1, item 10")
+        _not_ported("ingest_queue", "ROADMAP queue 1, item 'tiered/ and "
+                                    "ingest/'")
 
     def io_stats(self, reset: bool = False):
-        _not_ported("io_stats", "ROADMAP queue 1, item 8")
+        _not_ported("io_stats", "ROADMAP queue 1, item 'Disk tier'")

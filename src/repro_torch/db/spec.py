@@ -2,10 +2,11 @@
 
 Port of ``repro/db/spec.py``.  ``IndexSpec`` keeps the reference's
 fields and validation, so one spec reads the same in both packages.
-The port serves the RAM tier, at full precision or with PQ traversal
-(``pq=M``), unfiltered and without the adapt layer; a spec asking for
-anything else raises ``CapabilityError`` naming the ROADMAP item that
-will bring it.
+The port serves the RAM tier in every mode (``catapult``, ``diskann``,
+``lsh_apg``), at full precision or with PQ traversal (``pq=M``),
+filtered (``filters=True``) or not, without the adapt layer; a spec
+asking for anything else raises ``CapabilityError`` naming, by title,
+the ROADMAP item that will bring it.
 ``io``/``ingest``/``tiered``/``adapt`` keep their places but only take
 ``None`` for now (their spec types come with their tiers).
 """
@@ -38,15 +39,14 @@ class Caps(NamedTuple):
     host_views: bool = True  # db.vectors / db.tombstones available
 
 
-# what this slice lacks -> the ROADMAP item that brings it
+# what the port lacks -> the ROADMAP queue 1 item (by title) that brings it
 _NOT_PORTED = {
-    "tier": "ROADMAP queue 1, items 8-10 (disk, sharded and tiered tiers)",
-    "mode": "ROADMAP queue 1, item 5 (core/lsh_apg.py)",
-    "filters": "ROADMAP queue 1, item 5 (core/filters.py)",
-    "adapt": "ROADMAP queue 1, item 7 (adapt/)",
-    "io": "ROADMAP queue 1, item 8 (disk tier I/O engine)",
-    "ingest": "ROADMAP queue 1, item 10 (ingest/)",
-    "tiered": "ROADMAP queue 1, item 10 (tiered/)",
+    "tier": "ROADMAP queue 1, items 'Disk tier', 'Sharded tier' and "
+            "'tiered/ and ingest/'",
+    "adapt": "ROADMAP queue 1, item 'Serving front end and adapt/'",
+    "io": "ROADMAP queue 1, item 'Disk tier'",
+    "ingest": "ROADMAP queue 1, item 'tiered/ and ingest/'",
+    "tiered": "ROADMAP queue 1, item 'tiered/ and ingest/'",
 }
 
 
@@ -116,8 +116,7 @@ class IndexSpec:
         if self.hop_backend not in HOP_BACKENDS:
             raise ValueError(f"hop_backend must be one of {HOP_BACKENDS}, "
                              f"got {self.hop_backend!r}")
-        asked = {"tier": self.tier != "ram", "mode": self.mode == "lsh_apg",
-                 "filters": self.filters,
+        asked = {"tier": self.tier != "ram",
                  "adapt": self.adapt is not None, "io": self.io is not None,
                  "ingest": self.ingest is not None,
                  "tiered": self.tiered is not None}

@@ -171,13 +171,31 @@ def test_catapulted_lookup_matches_jax(corpus, queries, diskann_engine,
 
 
 def test_catapulted_lookup_rejects_filters():
+    """A destination whose label fails a filtered lane's predicate never
+    starts that lane, which falls back to its label's entry point;
+    unfiltered lanes take every destination and the medoid."""
+    rng = np.random.default_rng(0)
+    data = rng.normal(size=(40, 4)).astype(np.float32)
+    labels = (np.arange(40) % 2).astype(np.int32)
     state = tcat.make_catapult_state(torch.Generator().manual_seed(0), 4,
-                                     n_bits=2, capacity=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="filters"):
-        tcat.catapulted_lookup(
-            state, torch.zeros((3, 2), dtype=torch.int32), torch.zeros((1, 4)),
-            tbs.SearchSpec(4, 1, 4), tbs.l2_dist_fn(torch.zeros((3, 4))), 0,
-            node_labels=torch.zeros(3, dtype=torch.int32))
+                                     n_bits=1, capacity=3, device="cpu")
+    on1 = np.array([1, 3, 5], np.int32)
+    arrays = tbk.to_arrays(state.buckets)
+    arrays["ids"][:] = on1
+    arrays["stamp"][:] = np.arange(3)
+    state = tcat.CatapultState(lsh=state.lsh,
+                               buckets=tbk.from_arrays(arrays, device="cpu"))
+    entries = torch.tensor([10, 11], dtype=torch.int32)
+    fl = torch.tensor([0, 1, -1], dtype=torch.int32)
+    _, res, st = tcat.catapulted_lookup(
+        state, torch.full((40, 2), -1, dtype=torch.int32),
+        torch.as_tensor(data[:3]), tbs.SearchSpec(4, 4, 4),
+        tbs.l2_dist_fn(torch.as_tensor(data)), 7, filter_labels=fl,
+        node_labels=torch.as_tensor(labels), label_entry=entries)
+    assert st.used.tolist() == [False, True, True]
+    # no edges: each lane's beam holds exactly its valid starts
+    starts = [set(r) - {-1} for r in res.ids.tolist()]
+    assert starts == [{10}, {1, 3, 5, 11}, {1, 3, 5, 7}]
 
 
 @pytest.mark.parametrize("p", [0, 17, 401, 1499])

@@ -457,3 +457,105 @@ def test_pq96_database_on_the_card_matches_the_cpu(dev):
     np.testing.assert_array_equal(ids["cuda", "fused"], ids["cuda", "unfused"])
     assert abs(recall_at_k(ids["cuda", "unfused"], truth)
                - recall_at_k(ids["cpu", "unfused"], truth)) <= 0.01
+
+
+def _labeled_corpus(seed, n=1200, d=16, n_labels=4):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(8, d)).astype(np.float32) * 4
+    assign = rng.integers(0, 8, n)
+    vec = (centers[assign] + rng.normal(size=(n, d))).astype(np.float32)
+    pick = rng.integers(0, 8, 64)
+    qs = (centers[pick] + 0.5 * rng.normal(size=(64, d))).astype(np.float32)
+    return vec, (assign % n_labels).astype(np.int32), qs, \
+        (pick % n_labels).astype(np.int32)
+
+
+@pytest.mark.parametrize("mode,pq", [("catapult", None), ("diskann", None),
+                                     ("catapult", 4)])
+def test_filtered_database_on_the_card_matches_the_cpu(dev, mode, pq):
+    """A filtered database on the card and on the CPU over one stitched
+    graph: every id satisfies its lane's predicate, the fused backend
+    returns the unfused ids (a mask keeps both composed), recall@10
+    against a label-filtered brute force within 1 point of the CPU."""
+    from repro_torch import db
+    from repro_torch.core.engine import brute_force_knn, recall_at_k
+    from repro_torch.core.filters import build_stitched_graph
+    from repro_torch.core.vamana import VamanaParams
+    vec, labels, qs, fl = _labeled_corpus(17)
+    graph = build_stitched_graph(vec, labels, 4, VamanaParams(
+        max_degree=16, build_beam=32), device=dev)
+    truth = brute_force_knn(vec, qs, 10, labels=labels, filter_labels=fl)
+    ids = {}
+    for where, hb in (("cuda", "unfused"), ("cuda", "fused"),
+                      ("cpu", "unfused")):
+        d = db.create(db.IndexSpec(mode=mode, degree=16, build_beam=32,
+                                   filters=True, pq=pq, hop_backend=hb),
+                      vec, labels, prebuilt=graph, device=where)
+        d.search(qs, k=10, filter_labels=fl)
+        ids[where, hb] = got = d.search(qs, k=10, filter_labels=fl).ids
+        ok = got >= 0
+        assert ok.any()
+        assert (labels[got[ok]] == np.broadcast_to(fl[:, None],
+                                                   got.shape)[ok]).all()
+    np.testing.assert_array_equal(ids["cuda", "fused"], ids["cuda", "unfused"])
+    assert abs(recall_at_k(ids["cuda", "unfused"], truth)
+               - recall_at_k(ids["cpu", "unfused"], truth)) <= 0.01
+
+
+@pytest.mark.parametrize("filtered", [False, True])
+def test_mutated_database_on_the_card_matches_the_cpu(dev, filtered):
+    """Keyed upserts (one a true upsert), deletes by key and a
+    consolidate on the card and on the CPU from one graph: adjacency,
+    tombstones, medoid and label entries equal after every step (the
+    insert searches run on the card, the surgery on the host), no dead
+    id returned, recall@10 over live rows within 1 point."""
+    from repro_torch import db
+    from repro_torch.core.engine import brute_force_knn, recall_at_k
+    from repro_torch.core.filters import label_entry_points
+    from repro_torch.core.vamana import VamanaParams, build_vamana
+    vec, labels, qs, fl = _labeled_corpus(19)
+    adj, med = build_vamana(vec, VamanaParams(max_degree=16, build_beam=32),
+                            device=dev)
+    graph = (adj, med, label_entry_points(vec, labels, 4))
+    rng = np.random.default_rng(20)
+    new = (vec[rng.integers(0, 1200, 96)]
+           + 0.3 * rng.normal(size=(96, 16))).astype(np.float32)
+    new_labels = rng.integers(0, 4, 96).astype(np.int32)
+    dbs = {}
+    for where in ("cuda", "cpu"):
+        dbs[where] = db.create(
+            db.IndexSpec(degree=16, build_beam=32, filters=filtered,
+                         spare_capacity=128),
+            vec, labels if filtered else None,
+            prebuilt=graph if filtered else graph[:2], device=where)
+
+    def step(fn):
+        for d in dbs.values():
+            fn(d)
+        a, b = dbs["cuda"].backend, dbs["cpu"].backend
+        np.testing.assert_array_equal(a._adj_np, b._adj_np)
+        np.testing.assert_array_equal(a._tomb_np, b._tomb_np)
+        assert a.medoid == b.medoid
+        np.testing.assert_array_equal(a._adj.cpu().numpy(), a._adj_np)
+        if filtered:
+            np.testing.assert_array_equal(a._label_entry_np,
+                                          b._label_entry_np)
+
+    lab = new_labels if filtered else None
+    step(lambda d: d.upsert(new, lab, keys=list(range(96))))
+    step(lambda d: d.upsert(new[:16] + 0.05,
+                            None if lab is None else lab[:16],
+                            keys=list(range(16))))
+    step(lambda d: d.delete(keys=list(range(16, 48))))
+    step(lambda d: d.consolidate())
+    live = ~dbs["cpu"].tombstones
+    f = fl if filtered else None
+    truth = brute_force_knn(dbs["cpu"].vectors, qs, 10, labels=(
+        dbs["cpu"].backend._labels_np[:live.size] if filtered else None),
+        filter_labels=f, exclude=np.nonzero(~live)[0])
+    rec = {}
+    for where, d in dbs.items():
+        ids = d.search(qs, k=10, filter_labels=f).ids
+        assert live[ids[ids >= 0]].all()
+        rec[where] = recall_at_k(ids, truth)
+    assert abs(rec["cuda"] - rec["cpu"]) <= 0.01, rec

@@ -93,38 +93,100 @@ def test_create_defaults_to_the_card():
         tdb.create(tdb.IndexSpec(degree=4, build_beam=8), vec)
 
 
-@pytest.mark.parametrize("mode,hop_backend,pq", [
-    pytest.param(mode, hb, pq, id=f"{mode}-{hb}" + ("-pq" if pq else ""))
-    for mode, hb, pq in [
-        ("catapult", "unfused", None), ("catapult", "fused", None),
-        ("diskann", "unfused", None), ("catapult", "unfused", 4),
-        ("catapult", "fused", 4), ("diskann", "unfused", 4),
-        ("diskann", "fused", 4)]])
-def test_chip_smoke_launch_accounting(corpus, queries, graph, monkeypatch,
-                                      mode, hop_backend, pq):
-    """``chip_smoke.expected_launches`` (what the card run holds each
-    path's kernel counts to) against the wrapper calls a search makes."""
+def _load_chip_smoke():
     import importlib.util
-    from repro_torch.kernels import ops
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _count_wrapper_calls(monkeypatch):
+    from repro_torch.kernels import ops
     calls = dict.fromkeys(ops.LAUNCHES, 0)
     for name in calls:
         def wrapped(*args, _name=name, _fn=getattr(ops, name)):
             calls[_name] += 1
             return _fn(*args)
         monkeypatch.setattr(ops, name, wrapped)
+    return calls
+
+
+@pytest.mark.parametrize("mode,hop_backend,pq,path", [
+    pytest.param(mode, hb, pq, path,
+                 id=f"{mode}-{hb}" + ("-pq" if pq else "")
+                 + ("" if path == "search" else f"-{path}"))
+    for mode, hb, pq, path in [
+        ("catapult", "unfused", None, "search"),
+        ("catapult", "fused", None, "search"),
+        ("diskann", "unfused", None, "search"),
+        ("catapult", "unfused", 4, "search"),
+        ("catapult", "fused", 4, "search"),
+        ("diskann", "unfused", 4, "search"),
+        ("diskann", "fused", 4, "search"),
+        ("catapult", "fused", None, "filtered"),
+        ("diskann", "unfused", None, "filtered"),
+        ("catapult", "fused", 4, "filtered"),
+        ("lsh_apg", "fused", None, "search"),
+        ("lsh_apg", "unfused", 4, "search"),
+        ("catapult", "fused", None, "two_phase"),
+        ("diskann", "unfused", None, "two_phase"),
+        ("lsh_apg", "fused", None, "two_phase")]])
+def test_chip_smoke_launch_accounting(corpus, queries, graph, monkeypatch,
+                                      mode, hop_backend, pq, path):
+    """``chip_smoke.expected_launches`` / ``two_phase_launches`` (what the
+    card run holds each path's kernel counts to) against the wrapper
+    calls a search makes: plain, filtered (a mask keeps every hop
+    composed), lsh_apg and two-phase batches."""
+    from repro_torch.core.filters import label_entry_points
+    smoke = _load_chip_smoke()
+    filtered = path == "filtered"
+    labels = (corpus[2] % 4).astype(np.int32) if filtered else None
+    pre = ((*graph, label_entry_points(corpus[0], labels, 4)) if filtered
+           else graph)
     port = tdb.create(tdb.IndexSpec(mode=mode, hop_backend=hop_backend,
-                                    pq=pq, **SPEC), corpus[0],
-                      prebuilt=graph, device="cpu")
+                                    pq=pq, filters=filtered, **SPEC),
+                      corpus[0], labels, prebuilt=pre, device="cpu")
+    calls = _count_wrapper_calls(monkeypatch)
+    want = dict.fromkeys(calls, 0)
     iters = []
     for lo in (0, 24, 48):
-        r = port.search(queries[lo: lo + 24], k=10)
+        q = queries[lo: lo + 24]
+        if path == "two_phase":
+            hops = port.backend.search_two_phase(q, k=10, phase1_iters=3)[2].hops
+            for name, n in smoke.two_phase_launches(mode, hop_backend, hops,
+                                                    3).items():
+                want[name] += n
+            continue
+        fl = (np.arange(24) % 5 - 1).astype(np.int32) if filtered else None
+        r = port.search(q, k=10, filter_labels=fl)
         iters.append(int(r.stats.hops.max()))
-    assert calls == smoke.expected_launches(mode, hop_backend, iters,
-                                            pq=bool(pq))
+    if path != "two_phase":
+        want = smoke.expected_launches(mode, hop_backend, iters, pq=bool(pq),
+                                       filtered=filtered)
+    assert calls == want
+
+
+@pytest.mark.parametrize("mode", ["catapult", "lsh_apg"])
+def test_chip_smoke_update_and_build_accounting(corpus, graph, monkeypatch,
+                                                mode):
+    """What ``chip_smoke.py`` holds its new paths to: an upsert's insert
+    searches launch ``gather_distance`` alone, a delete and a consolidate
+    launch nothing, and an ``lsh_apg`` build hashes the corpus once."""
+    calls = _count_wrapper_calls(monkeypatch)
+    port = tdb.create(tdb.IndexSpec(mode=mode, spare_capacity=8, **SPEC),
+                      corpus[0], prebuilt=graph, device="cpu")
+    assert calls["lsh_hash"] == (mode == "lsh_apg")
+    assert sum(calls.values()) == calls["lsh_hash"]
+    calls.update(dict.fromkeys(calls, 0))
+    port.upsert(corpus[0][:8] + 0.5, keys=list(range(8)))
+    assert calls["gather_distance"] > 0
+    assert sum(calls.values()) == calls["gather_distance"]
+    calls.update(dict.fromkeys(calls, 0))
+    port.delete(keys=[1, 2])
+    port.consolidate()
+    assert sum(calls.values()) == 0
 
 
 @pytest.mark.parametrize("build", [
@@ -163,9 +225,8 @@ def test_public_constructors_default_to_the_card(build):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("tier", "disk"), ("pq", 4), ("filters", True), ("mode", "lsh_apg"),
-    ("adapt", object()), ("io", object()), ("ingest", object()),
-    ("tiered", object())])
+    ("tier", "disk"), ("pq", 4), ("adapt", object()), ("io", object()),
+    ("ingest", object()), ("tiered", object())])
 def test_unported_spec_fields_raise_capability_error(field, value):
     """Every field this port lacks raises; ``pq`` is ported on the RAM
     tier and raises only with a tier that is not (through ``tier``)."""
@@ -213,14 +274,12 @@ def test_explain_metrics_and_request_spelling(corpus, queries, graph):
     assert port.warm((4,)) >= 0
 
 
-@pytest.mark.parametrize("op", ["upsert", "delete", "consolidate", "save",
-                                "serve", "io_stats"])
+@pytest.mark.parametrize("op", ["save", "serve", "io_stats"])
 def test_unported_database_methods_raise(corpus, graph, op):
     port = tdb.create(tdb.IndexSpec(mode="diskann", **SPEC), corpus[0],
                       prebuilt=graph, device="cpu")
-    args = {"upsert": (corpus[0][:2],), "delete": (np.array([1]),)}.get(op, ())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(port, op)(*args)
+        getattr(port, op)()
 
 
 def test_port_imports_neither_jax_nor_the_reference():
