@@ -29,28 +29,39 @@ then:
    mutations (keyed upserts, a true upsert, deletes by key and a
    consolidate on a card twin and a CPU twin that must end with the same
    graph), ``mode="lsh_apg"`` and ``search_two_phase`` under both hop
-   backends;
+   backends, and a stationary stream of uniform queries served through
+   ``db.serve(max_batch=64)`` with the adapt layer's production
+   ``PolicyConfig()`` on a card twin and a CPU twin;
 3. filtered search: ``make_papers()`` (20,000 x 24, 16 labels, 2,048
    queries, each with its own label), one ``build_stitched_graph`` on
    the card, then the four twins with ``IndexSpec(filters=True)``, at
    full precision and with ``pq=8``: every id and every catapult start on
    its lane's label;
-4. deployment width: 1,000,000 x 768 vectors, degree 64, over a random
+4. adaptation: ``make_shifted_zipf(kind="sudden")`` (20,000 x 24, its
+   graph built on the CPU by a second process while the card phases
+   run) served through ``db.serve(max_batch=64)`` with the maintainer
+   attached, on a card twin and a CPU twin with equal maintainer events
+   and buckets, at least one drift flush after the shift and a recovered
+   win share, beside a frozen-buckets twin that recovers less;
+5. deployment width: 1,000,000 x 768 vectors, degree 64, over a random
    regular graph, 4 batches of 4,096 queries under both hop backends, at
    full precision and with PQ (M=8, K=256; training, encoding and LUT
    times recorded); then ``IndexSpec(pq=96)`` (96 KB LUTs) on a 20,000
    x 768 slice under both hop backends, whose ids must be equal; then
    filtered search over a stitched-shaped (1M, 64 + 32) adjacency with
    16 labels, an upsert of 64 rows and a delete of 4,096, and
-   ``mode="lsh_apg"`` (its build hashes every row), all at 1M rows, and
-   ``consolidate`` on the 20,000-row slice.
+   ``mode="lsh_apg"`` (its build hashes every row), all at 1M rows,
+   ``consolidate`` on the 20,000-row slice, and ``db.serve(max_batch=
+   4096)`` at 1M rows in turns with and without the maintainer.
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
 after it; each path must show exactly the launches its batches imply
-(``expected_launches``, ``two_phase_launches``; a masked search stays
-on the composed hop, insert searches and builds launch
-``gather_distance`` alone, deletes and consolidates launch nothing).
+(``expected_launches``, ``two_phase_launches``, ``serve_launches``; a
+masked search stays on the composed hop, insert searches and builds
+launch ``gather_distance`` alone, deletes and consolidates launch
+nothing, a maintainer's telemetry fold launches one ``lsh_hash`` and
+its shadow and gated-off batches run the diskann path).
 Any failed check exits non-zero.  Prints the
 card's name and power limit first, a ``{"kernels": [...]}`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -59,8 +70,11 @@ or of the reference package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import subprocess
+import tempfile
 import sys
 import time
 from pathlib import Path
@@ -85,6 +99,16 @@ PHASE1_ITERS = 8               # search_two_phase's default phase-1 budget
 N_LABELS = 16                  # make_papers' categories, also at 1M rows
 DEPLOY_UPSERT = 64             # rows upserted at 1M x 768 (host-bound)
 SPIN_CYCLES = 2 ** 25          # ~17 ms at 1.98 GHz, before each timed run
+SERVE_BATCH = 64               # the adapt phase's frontend batch
+# the reference bench's (benchmarks/bench_adapt.py) shift policy: the
+# stream is 64 batches, so shadows and ticks come early enough to act
+SHIFT_POLICY = dict(observe_every=1, baseline_every=6, min_batches=4)
+SHIFT_TICK_EVERY = 2
+ADAPT_EVENTS = ("ticks", "ttl_evicted", "flushed_entries", "drift_flushes",
+                "gate_transitions", "shadows", "probes")
+STATIONARY_QUERIES = 12_288    # 192 batches: a shadow every 48
+STATIONARY_TICK = 4
+DEPLOY_FLUSHES = 16            # flushes of 4,096 at 1M x 768, each side
 
 
 class SmokeFailure(RuntimeError):
@@ -594,7 +618,8 @@ def counted(fn):
 
 
 def expected_launches(mode: str, hop_backend: str, loop_iters,
-                      pq: bool = False, filtered: bool = False) -> dict:
+                      pq: bool = False, filtered: bool = False,
+                      folds: int = 0) -> dict:
     """Kernel launches of a run of search batches whose beam searches
     took ``loop_iters`` loop iterations each (a batch's iterations are the
     largest ``hops`` of its lanes).  The composed hop's distance kernel
@@ -606,8 +631,11 @@ def expected_launches(mode: str, hop_backend: str, loop_iters,
     every iteration are one composed-distance launch unfused, one
     fused-hop launch fused, and always composed on a filtered engine (a
     predicate mask keeps the search off the fused kernels); PQ reranks
-    the final beam with one ``gather_distance`` launch.  ``l2_distance``
-    is on no path."""
+    the final beam with one ``gather_distance`` launch.  A maintainer's
+    telemetry fold of a batch (``folds`` of them) hashes it once more,
+    one ``lsh_hash`` launch each; its shadow and gated-off batches are
+    diskann batches (``serve_launches``).  ``l2_distance`` is on no
+    path."""
     nb, it = len(loop_iters), int(sum(loop_iters))
     adc = pq and mode != "lsh_apg"
     composed = "pq_adc" if adc else "gather_distance"
@@ -622,7 +650,118 @@ def expected_launches(mode: str, hop_backend: str, loop_iters,
     out[hop] += nb + it
     if pq:
         out["gather_distance"] += nb
+    out["lsh_hash"] += folds
     return out
+
+
+def serve_launches(batches, hop_backend: str) -> dict:
+    """Kernel launches of served batches (``ServeSpy.batches``): a batch
+    dispatched with catapults active is a catapult batch, a shadow or
+    gated-off one a diskann batch, and each folded batch adds its
+    ``lsh_hash``."""
+    cat = expected_launches("catapult", hop_backend,
+                            [b["iters"] for b in batches if b["active"]],
+                            folds=sum(b["folded"] for b in batches))
+    dk = expected_launches("diskann", hop_backend,
+                           [b["iters"] for b in batches if not b["active"]])
+    return {k: cat[k] + dk[k] for k in cat}
+
+
+class ServeSpy:
+    """Records what a served engine did, batch by batch, for the launch
+    formula and the adaptation curve: its dispatch path, loop iterations,
+    mean hops and win share over the real lanes, and whether the
+    maintainer folded the batch (by wrapping ``adapt.stats.
+    observe_update`` while installed).  ``freeze_at``: from that batch on
+    the bucket table is put back after every search, so the batches read
+    the table as it was and their publishes are discarded (the reference
+    bench's frozen-buckets baseline; its stats stay real)."""
+
+    def __init__(self, eng, freeze_at=None):
+        self.eng, self.freeze_at, self.batches = eng, freeze_at, []
+        self._frozen = None
+
+    def __enter__(self):
+        from repro_torch.adapt import stats as ts
+        eng, real_search = self.eng, self.eng.search
+        self._ts, self._observe = ts, ts.observe_update
+
+        def search(queries, k, beam_width=None, publish_mask=None, **kw):
+            real = np.asarray(publish_mask, bool)
+            frozen = (self.freeze_at is not None
+                      and len(self.batches) >= self.freeze_at)
+            if frozen and self._frozen is None:
+                self._frozen = eng._cat
+            rec = dict(active=eng.catapult_active,
+                       enabled=eng.catapult_enabled, folded=False)
+            ids, dists, st = real_search(queries, k, beam_width=beam_width,
+                                         publish_mask=publish_mask, **kw)
+            if frozen:
+                eng._cat = self._frozen
+            rec.update(iters=int(st.hops.max()),
+                       hops=float(st.hops[real].mean()),
+                       won=float(st.won[real].mean()))
+            self.batches.append(rec)
+            return ids, dists, st
+
+        def observe(*args, **kw):
+            self.batches[-1]["folded"] = True
+            return self._observe(*args, **kw)
+
+        eng.search = search
+        ts.observe_update = observe
+        return self
+
+    def __exit__(self, *exc):
+        del self.eng.search              # the bound method again
+        self._ts.observe_update = self._observe
+        return False
+
+    def wins(self) -> np.ndarray:
+        """Per-batch catapult win share, scored as the reference's
+        adaptation bench scores it: a shadow batch (gate on, one-batch
+        diskann override) carries the last value, a gated-off batch
+        scores 0."""
+        out = []
+        for b in self.batches:
+            if b["active"]:
+                out.append(b["won"])
+            elif b["enabled"] and out:
+                out.append(out[-1])
+            else:
+                out.append(0.0)
+        return np.asarray(out)
+
+
+def adaptation_metrics(wins, shift_batch: int, batch: int):
+    """(pre-shift win, post-shift win, recovery queries | -1), computed
+    as the reference's ``benchmarks/bench_adapt.adaptation_metrics``:
+    recovery is the first post-shift batch whose 2-batch smoothed win
+    share regains 0.9 of the pre-shift level."""
+    n = wins.size
+    tail = max(2, shift_batch // 4)
+    pre = float(wins[shift_batch - tail: shift_batch].mean())
+    post = float(wins[-max(2, (n - shift_batch) // 4):].mean())
+    for j in range(shift_batch, n):
+        if wins[max(shift_batch, j - 1): j + 1].mean() >= 0.9 * pre:
+            return pre, post, (j - shift_batch + 1) * batch
+    return pre, post, -1
+
+
+def serve_stream(fe, queries, batch: int, on_flush=None) -> list:
+    """Submit ``batch`` tickets and flush, over the whole stream; returns
+    each flush's host ms (its results are on the host when it returns).
+    ``on_flush(i)`` runs after flush i."""
+    ms = []
+    for i, lo in enumerate(range(0, queries.shape[0], batch)):
+        for q in queries[lo: lo + batch]:
+            fe.submit(q)
+        t0 = time.perf_counter()
+        fe.flush()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if on_flush is not None:
+            on_flush(i)
+    return ms
 
 
 def two_phase_launches(mode: str, hop_backend: str, hops,
@@ -860,7 +999,9 @@ def phase_main_path(seed: int, dev) -> dict:
     out["build_s"] = build_s
     out["launches"]["build"] = built
     out["pq"] = replay_twins(wl, truth, graph, dev, pq=8)
-    for name, fn in (("mutations", phase_mutations), ("modes", phase_modes)):
+    for name, fn in (("mutations", phase_mutations), ("modes", phase_modes),
+                     ("adapt_stationary", lambda *a: phase_adapt_stationary(
+                         *a, seed))):
         t0 = time.perf_counter()
         out[name] = fn(wl, graph, dev)
         out[name]["seconds"] = time.perf_counter() - t0
@@ -1069,6 +1210,238 @@ def phase_modes(wl, graph, dev) -> dict:
     return out
 
 
+def adapt_twins(spec, corpus, graph, queries, dev, on_flush=None,
+                freeze_at=None) -> dict:
+    """Serve ``queries`` through ``db.serve(max_batch=SERVE_BATCH)`` of a
+    database per ``spec`` on the card, counted and spied, and (unless
+    ``freeze_at``) through its CPU twin; the card run's launches must
+    equal ``serve_launches``.  ``on_flush(i, maintainer, spy)`` runs after
+    the card twin's flush i.  Returns per device: the spy, flush ms, the
+    maintainer's snapshot and the final bucket table."""
+    from repro_torch import db
+    from repro_torch.core import buckets as bk
+    out = {}
+    for where in ("cuda",) if freeze_at is not None else ("cuda", "cpu"):
+        d = db.create(spec, corpus, prebuilt=graph, device=where)
+        fe = d.serve(max_batch=SERVE_BATCH)
+
+        def drive(d=d, fe=fe, where=where):
+            with ServeSpy(d.backend, freeze_at) as spy:
+                hook = (None if on_flush is None or where != "cuda" else
+                        lambda i: on_flush(i, fe.maintainer, spy))
+                ms = serve_stream(fe, queries, SERVE_BATCH, hook)
+            return spy, ms
+
+        if where == "cuda":
+            (spy, ms), launches = counted(drive)
+            want = serve_launches(spy.batches, "unfused")
+            check(launches == want, f"served stream launched {launches}, "
+                                    f"its batches imply {want}")
+        else:
+            spy, ms = drive()
+            launches = None
+        m = fe.maintainer
+        out[where] = dict(spy=spy, ms=ms, launches=launches,
+                          snapshot=None if m is None else m.snapshot(),
+                          buckets=bk.to_arrays(d.backend._cat.buckets))
+        if m is not None:
+            tel = d.backend.adapt_state
+            folds = sum(b["folded"] for b in spy.batches)
+            check(int(tel.n_batches) + int(tel.n_base) == folds,
+                  f"the telemetry counts {int(tel.n_batches)} + "
+                  f"{int(tel.n_base)} folded batches, the spy {folds}")
+    if "cpu" in out:
+        c, p = out["cuda"]["snapshot"], out["cpu"]["snapshot"]
+        diff = {k: (c[k], p[k]) for k in ADAPT_EVENTS if c[k] != p[k]}
+        same = {k: bool(np.array_equal(out["cuda"]["buckets"][k],
+                                       out["cpu"]["buckets"][k]))
+                for k in ("ids", "stamp")}
+        check(not diff and all(same.values()),
+              f"the card twin's maintainer differs from the CPU twin's: "
+              f"events {diff}, equal buckets {same}")
+    return out
+
+
+def phase_adapt_shift(graph, dev) -> dict:
+    """``make_shifted_zipf(kind="sudden")`` at the generator's defaults
+    (20,000 x 24, 256 clusters, 4,096 queries, the hot set swapped at
+    query 2,048) served through ``db.serve(max_batch=64)`` with the
+    reference bench's ``SHIFT_POLICY`` and ``adapt_tick_every=2``: a card
+    twin and a CPU twin with equal event counters and buckets, at least
+    one drift flush after the shift, a recovered post-shift win share,
+    and a frozen-buckets twin (its publishes discarded from the shift on,
+    no maintainer) that recovers less or not at all."""
+    from repro_torch import db
+    from repro_torch.adapt import PolicyConfig
+    from repro_torch.data import make_shifted_zipf
+    wl = make_shifted_zipf(kind="sudden")
+    shift_batch = wl.meta["shift_point"] // SERVE_BATCH
+    spec = db.IndexSpec(adapt=PolicyConfig(**SHIFT_POLICY),
+                        adapt_tick_every=SHIFT_TICK_EVERY)
+    windows, at_shift = [], {}
+
+    def on_flush(i, m, spy):
+        """The snapshot at the shift, and a readout every 4 flushes (host
+        syncs, outside the timed flushes)."""
+        if i + 1 == shift_batch:
+            at_shift.update(m.snapshot())
+        if (i + 1) % 4 == 0:
+            s = m.snapshot()
+            windows.append(dict(
+                flushes=i + 1, win_ewma=s["win_ewma"], drift=s["drift"],
+                drift_flushes=s["drift_flushes"], enabled=s["enabled"],
+                hops=float(np.mean([b["hops"] for b in spy.batches[-4:]]))))
+
+    out = {"rows": wl.corpus.shape[0], "queries": wl.queries.shape[0],
+           "shift_batch": shift_batch}
+    runs = adapt_twins(spec, wl.corpus, graph, wl.queries, dev,
+                       on_flush=on_flush)
+    frozen = adapt_twins(dataclasses.replace(spec, adapt=None), wl.corpus,
+                         graph, wl.queries, dev, freeze_at=shift_batch)
+    card = runs["cuda"]
+    for w in windows:
+        ms = card["ms"][w["flushes"] - 4: w["flushes"]]
+        w["flush_ms"] = float(np.mean(ms))
+        print(f"adapt shift window to flush {w['flushes']}: win EWMA "
+              f"{w['win_ewma']:.4f}, drift {w['drift']:.4f}, drift flushes "
+              f"{w['drift_flushes']}, enabled {w['enabled']}, hops a query "
+              f"{w['hops']:.2f}, flush ms {w['flush_ms']:.2f}")
+    for name, r in (("adaptive", card), ("frozen", frozen["cuda"])):
+        pre, post, rec = adaptation_metrics(r["spy"].wins(), shift_batch,
+                                            SERVE_BATCH)
+        hops = [b["hops"] for b in r["spy"].batches]
+        out[name] = dict(pre_shift_win=pre, post_shift_win=post,
+                         recovery_queries=rec,
+                         post_shift_hops=float(np.mean(hops[shift_batch:])),
+                         flush_ms_mean=float(np.mean(r["ms"])),
+                         flush_ms_p50=float(np.median(r["ms"])),
+                         launches=r["launches"])
+    out["adaptive"]["snapshot"] = card["snapshot"]
+    out["adaptive"]["cpu_snapshot"] = runs["cpu"]["snapshot"]
+    out["windows"] = windows
+    after = card["snapshot"]["drift_flushes"] - at_shift["drift_flushes"]
+    out["drift_flushes_after_shift"] = after
+    print(f"adapt shift: {out}")
+    a, f = out["adaptive"], out["frozen"]
+    check(after >= 1, "no drift flush after the shift point")
+    check(a["recovery_queries"] != -1,
+          f"the adaptive twin's win share did not recover after the shift: "
+          f"{a}")
+    check(f["recovery_queries"] == -1
+          or f["post_shift_win"] < a["post_shift_win"],
+          f"the frozen twin recovered as well as the adaptive one: {f}")
+    return out
+
+
+def phase_adapt_stationary(wl, graph, dev, seed: int) -> dict:
+    """Uniform queries (U(-1, 1)^d x 4 from ``--seed``, as ``make_uniform``
+    draws them) over the tripclick graph, served with the production
+    ``PolicyConfig()`` and ``adapt_tick_every=STATIONARY_TICK``: at least
+    one shadow batch, launches as the formula gives them, event counters
+    and buckets equal to the CPU twin's; reports whether the gate turned
+    catapults off, and the probes."""
+    from repro_torch import db
+    from repro_torch.adapt import PolicyConfig
+    rng = np.random.default_rng(seed)
+    queries = rng.uniform(-1, 1, size=(STATIONARY_QUERIES,
+                                       wl.corpus.shape[1])
+                          ).astype(np.float32) * 4.0
+    spec = db.IndexSpec(adapt=PolicyConfig(),
+                        adapt_tick_every=STATIONARY_TICK)
+    runs = adapt_twins(spec, wl.corpus, graph, queries, dev)
+    card = runs["cuda"]
+    s = card["snapshot"]
+    spy = card["spy"]
+    out = dict(queries=STATIONARY_QUERIES, snapshot=s,
+               gate_turned_off=s["gate_transitions"] > 0,
+               batches_gated_off=sum(not b["active"] and not b["enabled"]
+                                     for b in spy.batches),
+               folded_batches=sum(b["folded"] for b in spy.batches),
+               flush_ms_mean=float(np.mean(card["ms"])),
+               launches=card["launches"])
+    print(f"adapt stationary: {out}")
+    check(s["shadows"] >= 1, "the stationary stream ran no shadow batch")
+    return out
+
+
+def deploy_serve(vectors, vec_np, graph, dev) -> dict:
+    """``db.serve(max_batch=4096)`` over 1,000,000 x 768 (beam 16), in
+    turns with and without the maintainer (``PolicyConfig()``,
+    ``adapt_tick_every=4``), over ``DEPLOY_FLUSHES`` flushes of fresh
+    random queries each; the fold's device time (one ``lsh_hash`` at
+    (4096, 768) plus the histogram scatter), tick ms and a flush's
+    device idle share."""
+    from repro_torch import db
+    from repro_torch.adapt import PolicyConfig
+    from repro_torch.adapt import stats as ts
+    gen = torch.Generator(device=dev).manual_seed(DEPLOY_FLUSHES)
+    batches = []
+    for _ in range(DEPLOY_FLUSHES + 2):
+        rows = torch.randint(0, N, (B,), generator=gen, device=dev)
+        batches.append((vectors[rows] + 0.1 * torch.randn(
+            (B, D), generator=gen, device=dev)).cpu().numpy())
+    spec = db.IndexSpec(dim=D, degree=64, beam_width=16)
+    dbs = {"plain": db.create(spec, vec_np, prebuilt=graph),
+           "adapt": db.create(dataclasses.replace(
+               spec, adapt=PolicyConfig(), adapt_tick_every=4), vec_np,
+               prebuilt=graph)}
+    fes = {name: d.serve(max_batch=B) for name, d in dbs.items()}
+    spies = {name: ServeSpy(d.backend) for name, d in dbs.items()}
+    ms = {name: [] for name in dbs}
+    launches = {name: dict.fromkeys(
+        ("gather_distance", "lsh_hash", "fused_hop_l2", "fused_hop_pq",
+         "pq_adc", "l2_distance"), 0) for name in dbs}
+    for i, q in enumerate(batches[:DEPLOY_FLUSHES]):
+        for name in (("plain", "adapt") if i % 2 == 0 else ("adapt",
+                                                            "plain")):
+            with spies[name]:
+                got, n = counted(lambda: serve_stream(fes[name], q, B))
+            ms[name].extend(got)
+            for k, v in n.items():
+                launches[name][k] += v
+    for name in dbs:
+        want = serve_launches(spies[name].batches, "unfused")
+        check(launches[name] == want,
+              f"deployment width serve ({name}): launched {launches[name]}, "
+              f"its batches imply {want}")
+    eng = dbs["adapt"].backend
+    m = fes["adapt"].maintainer
+    qd = torch.as_tensor(batches[0], device=dev)
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    hops = torch.full((B,), 20.0, device=dev)
+    state = eng.adapt_state
+    fold_ms = cuda_ms(lambda: ts.observe_update(state, eng._cat.lsh, qd, ones,
+                                                ones, hops, ones), reps=20)
+    hash_ms = cuda_ms(lambda: ts.lsh_mod.hash_codes(eng._cat.lsh, qd),
+                      reps=20)
+    tick_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        m.tick()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    extra = batches[DEPLOY_FLUSHES]
+
+    def flush():
+        serve_stream(fes["adapt"], extra, B)
+
+    flush()
+    t0 = time.perf_counter()
+    flush()
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = device_busy_ms(flush)
+    out = dict(flushes=DEPLOY_FLUSHES, batch=B, ms=ms,
+               flush_ms_mean={k: float(np.mean(v)) for k, v in ms.items()},
+               flush_ms_p50={k: float(np.median(v)) for k, v in ms.items()},
+               fold_device_ms=fold_ms, fold_lsh_hash_ms=hash_ms,
+               tick_ms=tick_ms, tick_ms_p50=float(np.median(tick_ms)),
+               one_flush=dict(wall_ms=wall, device_busy_ms=busy,
+                              idle_share=(1.0 - busy / wall) if busy > 0
+                              else None),
+               snapshot=m.snapshot(), launches=launches)
+    print(f"deployment serve: {out}")
+    return out
+
+
 def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
     """1,000,000 x 768 over a random regular graph of degree 64, 4 batches
     of 4,096 queries (beam 16, max_iters 64) under both hop backends, at
@@ -1202,12 +1575,15 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
             ("lsh_apg", lambda: deploy_lsh_apg(vec_np, graph, queries, paths,
                                                ids)),
             ("consolidate", lambda: deploy_consolidate(
-                vec_np[:n96], graph96, queries, rng, paths))):
+                vec_np[:n96], graph96, queries, rng, paths)),
+            ("serve", lambda: deploy_serve(vectors, vec_np, graph, dev))):
         t0 = time.perf_counter()
         out[name] = fn()
         out[name]["seconds"] = time.perf_counter() - t0
         print(f"phase deployment {name}: {out[name]['seconds']:.1f} s",
               flush=True)
+    for name, n in out["serve"]["launches"].items():
+        paths[f"serve_{name}"] = n
     out["launches"] = paths
     out["max_memory_allocated_gb"] = max(peak["unfused"], peak["fused"])
     out["pq_max_memory_allocated_gb"] = max(peak["pq_unfused"],
@@ -1423,17 +1799,72 @@ def deploy_consolidate(vec, graph, queries, rng, paths):
     return out
 
 
+def build_shift_graph(path: str) -> None:
+    """The adapt phase's graph: ``build_vamana`` of
+    ``make_shifted_zipf(kind="sudden")``'s corpus with ``IndexSpec()``'s
+    build parameters, on the CPU (two threads), saved to ``path``."""
+    torch.set_num_threads(2)
+    from repro_torch import db
+    from repro_torch.core.vamana import build_vamana
+    from repro_torch.data import make_shifted_zipf
+    t0 = time.perf_counter()
+    adj, med = build_vamana(make_shifted_zipf(kind="sudden").corpus,
+                            db.IndexSpec().vamana(), device="cpu")
+    np.savez(path, adjacency=adj, medoid=med,
+             seconds=time.perf_counter() - t0)
+
+
+class ShiftGraph:
+    """The adapt phase's Vamana build in a second process on the CPU,
+    started before phase 1 so that it overlaps the card phases (its host
+    RobustPrune takes minutes; run alone it would add them to the run).
+    ``result()`` waits for it; leaving the ``with`` stops it."""
+
+    def __init__(self, path: Path):
+        self.path = path
+
+    def __enter__(self):
+        env = dict(os.environ, OMP_NUM_THREADS="2")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--shift-graph",
+             str(self.path)], env=env)
+        return self
+
+    def result(self):
+        t0 = time.perf_counter()
+        rc = self.proc.wait()
+        check(rc == 0, f"the shift corpus's graph build exited {rc}")
+        with np.load(self.path) as f:
+            print(f"adapt shift graph: built on the CPU in "
+                  f"{float(f['seconds']):.1f} s beside the card phases; "
+                  f"waited {time.perf_counter() - t0:.1f} s for it",
+                  flush=True)
+            return f["adjacency"], int(f["medoid"])
+
+    def __exit__(self, *exc):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        return False
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every number of the run to this JSON")
+    ap.add_argument("--shift-graph", default=None, metavar="NPZ",
+                    help=argparse.SUPPRESS)   # the run's own helper process
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script; "
               "run it from a checkout of the repository", file=sys.stderr)
         return 2
+    if args.shift_graph:
+        sys.path.insert(0, str(ROOT / "src"))
+        build_shift_graph(args.shift_graph)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this "
               "smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -1454,7 +1885,15 @@ def main() -> int:
     build_dir = _build.build_all()
     build_s = time.perf_counter() - t0
     print(f"kernels built in {build_s:.1f} s into {build_dir}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp, \
+            ShiftGraph(Path(tmp) / "shift_graph.npz") as shift_graph:
+        return run_phases(args, card, build_dir, build_s, t_run, dev,
+                          shift_graph)
 
+
+def run_phases(args, card, build_dir, build_s, t_run, dev,
+               shift_graph) -> int:
+    """Every phase, in order, then the kernels line and the device line."""
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     vectors = torch.randn((N, D), generator=gen, device=dev)
     kernels = phase_kernels(vectors, gen, dev)
@@ -1465,6 +1904,10 @@ def main() -> int:
     filtered = phase_filtered(dev)
     filtered["seconds"] = time.perf_counter() - t0
     print(f"phase filtered: {filtered['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    shift = phase_adapt_shift(shift_graph.result(), dev)
+    shift["seconds"] = time.perf_counter() - t0
+    print(f"phase adapt shift: {shift['seconds']:.1f} s", flush=True)
     deploy = phase_deployment(vectors, gen, args.seed, dev,
                               {k: v["ms"] for k, v in kernels.items()})
 
@@ -1479,6 +1922,9 @@ def main() -> int:
                **main_path["mutations"]["launches"],
                **main_path["modes"]["launches"], **filtered["launches"],
                **filtered["pq"]["launches"],
+               "adapt_stationary": main_path["adapt_stationary"]["launches"],
+               "adapt_shift": shift["adaptive"]["launches"],
+               "adapt_shift_frozen": shift["frozen"]["launches"],
                **{name if name.startswith("deployment_")
                   else f"deployment_{name}": n
                   for name, n in deploy["launches"].items()}}
@@ -1503,6 +1949,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels,
              "main_path": main_path, "filtered": filtered,
+             "adapt_shift": shift,
              "deployment": deploy, "ptxas": ptxas,
              "kernels_line": line}, indent=1, default=str))
     print(json.dumps(line))

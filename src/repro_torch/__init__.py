@@ -10,7 +10,11 @@ same layout so each module's counterpart is easy to find:
                  plain PyTorch versions (``ref.py``) and the wrappers
                  (``ops.py``) that pick one by the device of the tensors,
 * ``db/``      — the ``create``/``Database`` facade (RAM tier),
-* ``obs/``     — metrics registry and explain traces,
+* ``serving/`` — the micro-batching ``VectorSearchFrontend``,
+* ``adapt/``   — drift-aware catapult maintenance (telemetry, policy,
+                 ``CatapultMaintainer``),
+* ``obs/``     — metrics registry, explain traces, the serving window
+                 and profiler hooks,
 * ``ingest/``  — the caller-key map behind keyed upserts,
 * ``data/``    — synthetic workloads.
 

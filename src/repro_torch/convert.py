@@ -12,6 +12,12 @@ port's state on a given device:
   reference's disk reopen installs its persisted one,
 * the LSH-APG index: hyperplanes + the (2**L, m) bucket table, set as
   the engine's ``_apg``,
+* the adapt layer: a telemetry snapshot in the reference's
+  ``telemetry_to_arrays`` schema, and a maintainer's counters and gate
+  state (``maintainer_counters`` reads them off either package's
+  ``CatapultMaintainer``; ``set_maintainer_counters`` installs them),
+  so a parity test can hand a reference maintainer's state to the port
+  mid-stream,
 * the graph needs no helper: pass ``prebuilt=(adjacency, medoid)`` to
   ``repro_torch.db.create``; a filtered graph crosses as
   ``prebuilt=(adjacency, medoid, label_entries)``, with the per-row
@@ -22,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.adapt import stats as ts
 from repro_torch.core import buckets as bk
 from repro_torch.core.catapult import CatapultState
 from repro_torch.core.lsh import LSHParams
@@ -54,3 +61,38 @@ def lsh_apg_index_from_numpy(hyperplanes: np.ndarray, table: np.ndarray,
         lsh=LSHParams(hyperplanes=torch.tensor(
             np.asarray(hyperplanes, np.float32), device=device)),
         table=torch.tensor(np.asarray(table, np.int32), device=device))
+
+
+def telemetry_from_numpy(arrays, device="cuda",
+                         prefix: str = "adapt_") -> ts.TelemetryState:
+    """A ``telemetry_to_arrays`` dict (either package's) -> the port's
+    ``TelemetryState`` on ``device``, the same bytes."""
+    state = ts.telemetry_from_arrays(arrays, prefix, device)
+    if state is None:
+        raise KeyError(f"no {prefix}* telemetry fields in {sorted(arrays)}")
+    return state
+
+
+# the maintainer's event counters, then its gate machine's state
+MAINTAINER_COUNTERS = ("ttl_evicted", "flushed_entries", "drift_flushes",
+                       "gate_transitions", "probes", "shadows", "ticks",
+                       "consolidations")
+_MAINTAINER_STATE = ("_gate_on", "_probing", "_shadow", "_off_batches",
+                     "_since_shadow", "_since_tick", "_obs_count")
+
+
+def maintainer_counters(maintainer) -> dict:
+    """Plain ints and bools: a maintainer's counters and gate state."""
+    return {name: getattr(maintainer, name)
+            for name in MAINTAINER_COUNTERS + _MAINTAINER_STATE}
+
+
+def set_maintainer_counters(maintainer, counters: dict) -> None:
+    """Install ``maintainer_counters`` output on a port maintainer, and
+    the engine flags they imply: the persistent gate verdict, and the
+    one-batch override a pending shadow (False) or probe (True) arms."""
+    for name, value in counters.items():
+        setattr(maintainer, name, value)
+    maintainer._set_engines(bool(maintainer._gate_on))
+    maintainer._set_override(False if maintainer._shadow else
+                             True if maintainer._probing else None)

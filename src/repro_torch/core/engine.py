@@ -109,12 +109,30 @@ class VectorSearchEngine:
     # are bit-identical; filtered searches always take the composed hop.
     hop_backend: str = 'unfused'
     device: object = 'cuda'
+    # workload-adaptation hooks (repro_torch.adapt): the utility gate
+    # routes catapult-mode dispatch through the plain diskann path when
+    # the maintainer decides shortcuts stopped paying off, so a gated-off
+    # engine runs exactly what a diskann-mode engine runs.
+    # ``catapult_enabled`` is the persistent gate verdict;
+    # ``catapult_override`` the maintainer's transient one-batch override
+    # for shadow-baseline/probe batches; ``adapt_state`` the maintainer's
+    # telemetry of this engine.
+    catapult_enabled: bool = True
+    catapult_override: Optional[bool] = None
+    adapt_state: Optional[object] = None
 
     # populated by build()
     n_active: int = 0
     medoid: int = 0
     n_labels: int = 0
     filtered: bool = False
+
+    @property
+    def catapult_active(self) -> bool:
+        """Effective dispatch switch: the transient override when one is
+        armed, else the persistent gate."""
+        return (self.catapult_override if self.catapult_override is not None
+                else self.catapult_enabled)
 
     def __post_init__(self) -> None:
         self.device = resolve_device(self.device)
@@ -290,10 +308,12 @@ class VectorSearchEngine:
 
     def _dispatch(self, queries: torch.Tensor, flabels: torch.Tensor,
                   spec: SearchSpec, publish_mask=None):
-        """Run the mode's traversal; returns (raw result, used, won)."""
+        """Run the mode's traversal; returns (raw result, used, won).  A
+        gated-off catapult engine (``catapult_active`` False) takes the
+        diskann path."""
         b = queries.shape[0]
         pq = (self._pq, self._codes) if self.pq_subspaces else None
-        if self.mode == 'catapult':
+        if self.mode == 'catapult' and self.catapult_active:
             pm = (None if publish_mask is None
                   else torch.as_tensor(np.asarray(publish_mask, bool),
                                        device=self.device))
@@ -338,7 +358,7 @@ class VectorSearchEngine:
                            hop_backend=self.hop_backend)
         unfiltered = torch.full((b,), -1, dtype=torch.int32,
                                 device=self.device)
-        if self.mode == 'catapult':
+        if self.mode == 'catapult' and self.catapult_active:
             new_cat, res, st = _search_catapult(
                 self._cat, self._adj, self._vec, self._tomb, None, None, q,
                 unfiltered, self.medoid, spec1, None)

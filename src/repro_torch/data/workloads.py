@@ -1,12 +1,16 @@
 """Synthetic evaluation workloads — a copy of the reference's generators.
 
 The port keeps its own copy of ``repro/data/workloads.py``'s
-``Workload``, ``_clustered_corpus``, ``make_tripclick`` and
+``Workload``, ``_clustered_corpus``, ``make_tripclick``,
+``make_medrag_zipf``, ``make_shifted_zipf``, ``make_uniform`` and
 ``make_papers`` (numpy only), so the same seed gives the same corpus,
 labels and queries in both packages.
 
 tripclick — session random-walk over topic clusters: real user traffic's
 temporal locality (bursts of related queries) replayed in order.
+medrag_zipf — Zipf-skewed paraphrase clusters; shifted_zipf adds a
+mid-stream popularity shift (the adapt layer's scenarios); uniform has
+no locality at all.
 papers — a labeled corpus (label = cluster, the arXiv category) whose
 queries each carry their own category predicate (filtered search).
 Corpora are Gaussian cluster mixtures on a connected manifold; ambient
@@ -69,6 +73,72 @@ def make_tripclick(n=20_000, d=24, n_clusters=64, n_queries=4_096, seed=0,
                 break
     return Workload("tripclick", corpus,
                     np.asarray(qs, np.float32))
+
+
+def make_medrag_zipf(n=20_000, d=24, n_clusters=256, n_queries=4_096,
+                     seed=1, zipf_a=1.8, paraphrase=0.15):
+    """Zipf-sampled paraphrase clusters (the paper's Zipf(0.8) over ranked
+    clusters; numpy's one-parameter zipf uses a>1, the rank skew matches)."""
+    rng = np.random.default_rng(seed)
+    corpus, centers, _ = _clustered_corpus(n, d, n_clusters, rng)
+    ranks = rng.zipf(zipf_a, size=n_queries) % n_clusters
+    base = rng.permutation(n_clusters)[ranks]
+    qs = centers[base] + paraphrase * rng.normal(size=(n_queries, d))
+    return Workload("medrag_zipf", corpus, qs.astype(np.float32))
+
+
+def make_shifted_zipf(n=20_000, d=24, n_clusters=256, n_queries=4_096,
+                      seed=1, zipf_a=1.8, paraphrase=0.15, kind="sudden",
+                      period=None):
+    """medrag_zipf with a mid-stream workload shift (the paper's Fig. 7
+    adaptation scenarios).
+
+    Two independent rank→cluster popularity maps A and B over the SAME
+    corpus; each query draws its Zipf rank as usual, then resolves it
+    through A or B depending on stream position:
+
+      sudden    — A for the first half, B for the second: the hot set
+                  swaps instantly (a trending-topic event),
+      gradual   — P(B) ramps linearly from 0 to 1 over the middle half
+                  of the stream: slow audience migration,
+      flipflop  — A/B alternate every ``period`` queries (default Q/8):
+                  periodic traffic (time zones, weekday/weekend).
+
+    ``meta['shift_point']`` marks where post-shift measurement starts:
+    the swap for sudden, the end of the ramp for gradual, the last flip
+    for flipflop.
+    """
+    rng = np.random.default_rng(seed)
+    corpus, centers, _ = _clustered_corpus(n, d, n_clusters, rng)
+    ranks = rng.zipf(zipf_a, size=n_queries) % n_clusters
+    perm_a = rng.permutation(n_clusters)
+    perm_b = rng.permutation(n_clusters)
+    i = np.arange(n_queries)
+    if kind == "sudden":
+        shift = n_queries // 2
+        use_b = i >= shift
+    elif kind == "gradual":
+        ramp = np.clip((i - n_queries // 4) / max(n_queries // 2, 1), 0., 1.)
+        use_b = rng.random(n_queries) < ramp
+        shift = 3 * n_queries // 4
+    elif kind == "flipflop":
+        period = period or max(n_queries // 8, 1)
+        use_b = (i // period) % 2 == 1
+        shift = (n_queries // period) * period - period
+    else:
+        raise ValueError(f"unknown shift kind {kind!r}")
+    cluster = np.where(use_b, perm_b[ranks], perm_a[ranks])
+    qs = centers[cluster] + paraphrase * rng.normal(size=(n_queries, d))
+    return Workload(f"shifted_zipf_{kind}", corpus, qs.astype(np.float32),
+                    meta={"kind": kind, "shift_point": int(shift),
+                          "period": int(period or 0)})
+
+
+def make_uniform(n=20_000, d=24, n_queries=4_096, seed=2):
+    rng = np.random.default_rng(seed)
+    corpus, _, _ = _clustered_corpus(n, d, 64, rng)
+    qs = rng.uniform(-1, 1, size=(n_queries, d)).astype(np.float32) * 4.0
+    return Workload("uniform", corpus, qs)
 
 
 def make_papers(n=20_000, d=24, n_labels=16, n_queries=2_048, seed=3):

@@ -4,26 +4,49 @@ Port of ``repro/db/database.py`` for the RAM tier: ``search`` (a
 ``SearchRequest`` or a raw query array with keywords, per-request
 ``publish`` and ``filter_labels``, ``explain=True`` traces),
 ``upsert`` (with ``keys=`` for a true upsert), ``delete`` (by id or by
-key), ``consolidate``, ``metrics``, ``warm``, ``close`` and the host
+key), ``consolidate``, ``serve`` (the micro-batching frontend, with the
+drift-aware maintainer attached when the spec carries an adapt policy),
+``attach_maintainer``, ``metrics``, ``warm``, ``close`` and the host
 views.  Every search passes an explicit all-True or all-False
-``publish_mask``, as the reference's does.  The persistence and
-serving methods raise ``NotImplementedError`` naming, by title, the
+``publish_mask``, as the reference's does.  Mutations and maintainer
+ticks serialize on one lock; searches take none.  The persistence and
+ingest methods raise ``NotImplementedError`` naming, by title, the
 ROADMAP item that ports them.
 """
 from __future__ import annotations
 
+import threading
 import time
+import weakref
+from functools import partial
 from typing import Optional
 
 import numpy as np
 
+from repro_torch.adapt import CatapultMaintainer
 from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec,
                                  SearchRequest, SearchResult)
 from repro_torch.ingest.keys import KeyMap
 from repro_torch.obs import MetricsRegistry, TraceRecorder, build_search_trace
+from repro_torch.serving import VectorSearchFrontend
 
 # batch-mean hop counts per search — graph-walk lengths, not latencies
 _HOP_EDGES = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0, 256.0, 512.0)
+
+
+def _adapt_metrics(db_ref) -> dict:
+    """The maintainer's snapshot as ``catapultdb_adapt_*`` metrics.  The
+    maintainer is read at scrape time (``attach_maintainer`` may run
+    after the collector registers), through a weak reference, so the
+    registry keeps no database alive."""
+    db = db_ref()
+    m = None if db is None else db.maintainer
+    if m is None:
+        return {}
+    return {f"catapultdb_adapt_{key}": float(v)
+            for key, v in m.snapshot().items()
+            if isinstance(v, (bool, int, float, np.bool_, np.integer,
+                              np.floating))}
 
 
 def _not_ported(op: str, item: str):
@@ -39,7 +62,13 @@ class Database:
         self.backend = backend       # the internal engine
         self.spec = spec
         self.caps = caps
+        self.maintainer = None       # set by serve()/attach_maintainer()
         self.last_warm_ms: Optional[float] = None
+        self.last_warm_breakdown: dict = {}   # {batch_shape: ms}
+        # upsert/delete/consolidate serialize here, and the maintainer
+        # shares the lock for its background consolidate; searches stay
+        # lock-free
+        self._mutate_lock = threading.RLock()
         self.keys = KeyMap()         # caller keys <-> gids
         self.registry = MetricsRegistry(enabled=spec.metrics)
         reg = self.registry
@@ -62,6 +91,7 @@ class Database:
             keys = self.keys
             reg.register_collector(lambda: {
                 "catapultdb_ingest_keys": float(len(keys))})
+            reg.register_collector(partial(_adapt_metrics, weakref.ref(self)))
 
     def _record_search(self, batch: int, ms: float, stats,
                        explained: bool) -> None:
@@ -174,17 +204,18 @@ class Database:
         b = vectors.shape[0]
         if keys is not None and len(keys) != b:
             raise ValueError(f"{len(keys)} keys for {b} rows")
-        gids = np.asarray(self.backend.insert_batch(vectors, labels),
-                          np.int64)
-        replaced = 0
-        if keys is not None:
-            old = self.keys.assign(keys, gids)
-            stale = old[old >= 0]
-            if stale.size:
-                # true upsert: the replaced rows die after the new ones
-                # landed
-                self.backend.delete(stale)
-                replaced = int(stale.size)
+        with self._mutate_lock:
+            gids = np.asarray(self.backend.insert_batch(vectors, labels),
+                              np.int64)
+            replaced = 0
+            if keys is not None:
+                old = self.keys.assign(keys, gids)
+                stale = old[old >= 0]
+                if stale.size:
+                    # true upsert: the replaced rows die after the new
+                    # ones landed
+                    self.backend.delete(stale)
+                    replaced = int(stale.size)
         if self.registry.enabled:
             self._m_ing_rows.inc(b)
             self._m_ing_batches.inc()
@@ -201,17 +232,65 @@ class Database:
         self._need("mutable", "delete()")
         if (ids is None) == (keys is None):
             raise TypeError("delete() takes exactly one of ids= or keys=")
-        if keys is not None:
-            ids = self.keys.drop(keys)
-        self.backend.delete(ids)
+        with self._mutate_lock:
+            if keys is not None:
+                ids = self.keys.drop(keys)
+            self.backend.delete(ids)
         if self.registry.enabled:
             self._m_ing_deletes.inc(int(np.asarray(ids).size))
 
     def consolidate(self) -> int:
         """FreshVamana compaction pass; returns the repaired row count."""
         self._need("mutable", "consolidate()")
-        return self.backend.consolidate()
+        with self._mutate_lock:
+            return self.backend.consolidate()
 
+    # ---------------------------------------------------------------- serve
+    def serve(self, *, max_batch: int = 64, k: Optional[int] = None,
+              beam_width: Optional[int] = None, maintain=None,
+              ingest=None):
+        """One-line serving: a micro-batching ``VectorSearchFrontend``
+        over this database, with the drift-aware ``CatapultMaintainer``
+        attached when the spec carries an adapt policy.
+
+        ``maintain``: None = follow ``spec.adapt``; False = never
+        attach; a ``PolicyConfig`` = attach with that policy.
+        ``ingest`` (an ingest queue the frontend pumps) is not ported
+        yet.
+        """
+        if ingest is not None:
+            _not_ported("serve(ingest=...)",
+                        "ROADMAP queue 1, item 'tiered/ and ingest/'")
+        maintainer = None
+        policy = self.spec.adapt if maintain is None else maintain
+        if policy:
+            maintainer = self.attach_maintainer(
+                policy if policy is not True else None)
+        fe = VectorSearchFrontend(
+            self.backend, k=k or self.spec.k, max_batch=max_batch,
+            beam_width=beam_width or self.spec.beam_width,
+            maintainer=maintainer, metrics=self.registry)
+        # the frontend's rolling window (QPS, occupancy, flush p99)
+        # rides into db.metrics() as a pull collector
+        self.registry.register_collector(fe.window.as_collector())
+        return fe
+
+    def attach_maintainer(self, policy=None, tick_every: Optional[int] = None):
+        """Create (and remember) a ``CatapultMaintainer`` over the
+        backend, sharing this database's mutate lock; ``policy`` and
+        ``tick_every`` default to the spec's ``adapt`` and
+        ``adapt_tick_every``.  (The reference's background-consolidate
+        threshold comes from ``IngestSpec``, which arrives with ROADMAP
+        queue 1, item 'tiered/ and ingest/'.)"""
+        if self.backend.mode != "catapult":
+            raise CapabilityError(
+                f"maintainer needs mode='catapult', this database is "
+                f"{self.backend.mode!r}")
+        self.maintainer = CatapultMaintainer(
+            self.backend, policy or self.spec.adapt,
+            tick_every=tick_every or self.spec.adapt_tick_every,
+            mutate_lock=self._mutate_lock)
+        return self.maintainer
 
     def warm(self, batch_shapes=None, *, k: Optional[int] = None,
              beam_width: Optional[int] = None) -> float:
@@ -220,14 +299,21 @@ class Database:
         kernels and settles the allocator.  Returns elapsed ms."""
         shapes = tuple(batch_shapes if batch_shapes is not None
                        else self.spec.warm_batch_shapes)
+        breakdown: dict = {}
         t0 = time.perf_counter()
         for b in shapes:
+            tb = time.perf_counter()
             q = np.zeros((int(b), self.dim), np.float32)
             self.search(q, k=k, beam_width=beam_width, publish=False)
+            breakdown[int(b)] = (time.perf_counter() - tb) * 1e3
         ms = (time.perf_counter() - t0) * 1e3
         self.last_warm_ms = ms
+        # per-shape cost, so a first-query regression names its shape
+        self.last_warm_breakdown = breakdown
         if self.registry.enabled:
             self.registry.gauge("catapultdb_warm_total_ms").set(ms)
+            for b, bms in breakdown.items():
+                self.registry.gauge(f"catapultdb_warm_ms_shape_{b}").set(bms)
         return ms
 
     def close(self) -> None:
@@ -272,18 +358,10 @@ class Database:
                 f"{self.caps.tier!r} tier of this database lacks")
 
     # ------------------------------------------------ not in the port yet
-    def save(self):
+    def save(self) -> None:
         _not_ported("save", "ROADMAP queue 1, item 'Disk tier'")
 
-    def serve(self, **kwargs):
-        _not_ported("serve", "ROADMAP queue 1, item 'Serving front end "
-                             "and adapt/'")
-
-    def attach_maintainer(self, policy=None, tick_every=None):
-        _not_ported("attach_maintainer", "ROADMAP queue 1, item 'Serving "
-                                         "front end and adapt/'")
-
-    def ingest_queue(self, batch_size=None):
+    def ingest_queue(self, batch_size: Optional[int] = None):
         _not_ported("ingest_queue", "ROADMAP queue 1, item 'tiered/ and "
                                     "ingest/'")
 

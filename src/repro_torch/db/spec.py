@@ -4,11 +4,12 @@ Port of ``repro/db/spec.py``.  ``IndexSpec`` keeps the reference's
 fields and validation, so one spec reads the same in both packages.
 The port serves the RAM tier in every mode (``catapult``, ``diskann``,
 ``lsh_apg``), at full precision or with PQ traversal (``pq=M``),
-filtered (``filters=True``) or not, without the adapt layer; a spec
-asking for anything else raises ``CapabilityError`` naming, by title,
-the ROADMAP item that will bring it.
-``io``/``ingest``/``tiered``/``adapt`` keep their places but only take
-``None`` for now (their spec types come with their tiers).
+filtered (``filters=True``) or not, with the adapt layer
+(``adapt=PolicyConfig(...)``, catapult mode) or without; a spec asking
+for anything else raises ``CapabilityError`` naming, by title, the
+ROADMAP item that will bring it.  ``io``/``ingest``/``tiered`` keep
+their places but only take ``None`` for now (their spec types come
+with their tiers).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 
+from repro_torch.adapt.policy import PolicyConfig
 from repro_torch.core.engine import SearchStats
 from repro_torch.core.vamana import VamanaParams
 
@@ -43,7 +45,6 @@ class Caps(NamedTuple):
 _NOT_PORTED = {
     "tier": "ROADMAP queue 1, items 'Disk tier', 'Sharded tier' and "
             "'tiered/ and ingest/'",
-    "adapt": "ROADMAP queue 1, item 'Serving front end and adapt/'",
     "io": "ROADMAP queue 1, item 'Disk tier'",
     "ingest": "ROADMAP queue 1, item 'tiered/ and ingest/'",
     "tiered": "ROADMAP queue 1, item 'tiered/ and ingest/'",
@@ -90,7 +91,7 @@ class IndexSpec:
     k: int = 10
     beam_width: Optional[int] = None
     # workload adaptation (catapult mode only)
-    adapt: Optional[object] = None
+    adapt: Optional[PolicyConfig] = None
     adapt_tick_every: int = 32
     # warm-up searches at create(); () disables
     warm_batch_shapes: tuple = ()
@@ -116,8 +117,7 @@ class IndexSpec:
         if self.hop_backend not in HOP_BACKENDS:
             raise ValueError(f"hop_backend must be one of {HOP_BACKENDS}, "
                              f"got {self.hop_backend!r}")
-        asked = {"tier": self.tier != "ram",
-                 "adapt": self.adapt is not None, "io": self.io is not None,
+        asked = {"tier": self.tier != "ram", "io": self.io is not None,
                  "ingest": self.ingest is not None,
                  "tiered": self.tiered is not None}
         for name, on in asked.items():

@@ -14,15 +14,21 @@ the tensors it was given:
 ``LAUNCHES`` counts kernel launches, one per wrapper call that launched
 (plain-version calls never count), so a run can show that its main path
 went through the kernels; callers reset it by assigning 0.
+
+Each wrapper runs inside ``obs.profiler.annotate("repro_torch.kernels.
+<name>")``: a named ``torch.profiler`` range when profiling is on, a
+shared no-op context otherwise.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._build import library
+from repro_torch.obs.profiler import annotate
 
 LAUNCHES = {"gather_distance": 0, "lsh_hash": 0, "fused_hop_l2": 0,
             "fused_hop_pq": 0, "pq_adc": 0, "l2_distance": 0}
@@ -78,6 +84,18 @@ def _raise_on(rc: int, name: str) -> None:
                            f"{rc}")
 
 
+def _annotated(fn):
+    """Run the wrapper ``fn`` inside its profiler range."""
+    label = f"repro_torch.kernels.{fn.__name__}"
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with annotate(label):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+@_annotated
 def gather_distance(vectors: torch.Tensor, ids: torch.Tensor,
                     queries: torch.Tensor) -> torch.Tensor:
     """(N, d) f32 table, (B, C) int32 ids, (B, d) f32 queries -> (B, C)
@@ -103,6 +121,7 @@ def gather_distance(vectors: torch.Tensor, ids: torch.Tensor,
     return out
 
 
+@_annotated
 def lsh_hash(queries: torch.Tensor, hyperplanes: torch.Tensor) -> torch.Tensor:
     """(B, d) f32 queries, (L, d) f32 hyperplanes -> (B,) int32 codes."""
     dev = queries.device
@@ -128,6 +147,7 @@ def lsh_hash(queries: torch.Tensor, hyperplanes: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@_annotated
 def fused_hop_l2(vectors, cand_ids, queries, beam_ids, beam_dists, beam_exp):
     """One fused L2 hop (gather + distance + beam merge) for a batch.
 
@@ -170,6 +190,7 @@ def fused_hop_l2(vectors, cand_ids, queries, beam_ids, beam_dists, beam_exp):
     return out_ids, out_d, out_exp, out_nf
 
 
+@_annotated
 def pq_adc(luts: torch.Tensor, codes: torch.Tensor,
            ids: torch.Tensor | None = None) -> torch.Tensor:
     """ADC sums ``Σ_m luts[b, m, row[m]]`` of (B, M, K) f32 LUTs over
@@ -217,6 +238,7 @@ def pq_adc(luts: torch.Tensor, codes: torch.Tensor,
     return out
 
 
+@_annotated
 def fused_hop_pq(luts, codes, cand_ids, beam_ids, beam_dists, beam_exp):
     """One fused PQ-ADC hop (code gather + ADC + beam merge) for a batch.
 
@@ -263,6 +285,7 @@ def fused_hop_pq(luts, codes, cand_ids, beam_ids, beam_dists, beam_exp):
     return out_ids, out_d, out_exp, out_nf
 
 
+@_annotated
 def l2_distance(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """(B, d) f32 queries, (C, d) f32 points -> (B, C) f32 squared L2.
 

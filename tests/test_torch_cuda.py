@@ -559,3 +559,77 @@ def test_mutated_database_on_the_card_matches_the_cpu(dev, filtered):
         assert live[ids[ids >= 0]].all()
         rec[where] = recall_at_k(ids, truth)
     assert abs(rec["cuda"] - rec["cpu"]) <= 0.01, rec
+
+
+def test_observe_update_on_the_card_matches_the_cpu(dev):
+    """The telemetry fold on the card (``lsh_hash`` kernel, index_add_,
+    the float64 fused multiply-adds) equals its CPU run: integers and
+    histograms exactly, EWMAs exactly, over catapult, shadow and padded
+    batches; one ``lsh_hash`` launch a fold and no host sync needed."""
+    from repro_torch.adapt import stats as ts
+    from repro_torch.core.lsh import LSHParams
+    rng = np.random.default_rng(23)
+    planes = rng.normal(size=(8, 768)).astype(np.float32)
+    states = {"cpu": ts.init_telemetry(256, "cpu"),
+              "cuda": ts.init_telemetry(256, dev)}
+    lsh = {"cpu": LSHParams(torch.as_tensor(planes)),
+           "cuda": LSHParams(torch.as_tensor(planes, device=dev))}
+    for i in range(10):
+        q = rng.normal(size=(512, 768)).astype(np.float32)
+        used, won = rng.random(512) < 0.8, rng.random(512) < 0.5
+        hops = rng.integers(3, 60, 512).astype(np.float32)
+        real = np.arange(512) < 400 + 10 * i
+        for where in states:
+            d = "cpu" if where == "cpu" else dev
+            before = ops.LAUNCHES["lsh_hash"]
+            states[where] = ts.observe_update(
+                states[where], lsh[where], torch.as_tensor(q, device=d),
+                *(torch.as_tensor(x, device=d) for x in (used, won, hops,
+                                                         real)),
+                baseline=i % 3 == 1)
+            assert ops.LAUNCHES["lsh_hash"] - before == (where == "cuda")
+    a = ts.telemetry_to_arrays(states["cuda"])
+    b = ts.telemetry_to_arrays(states["cpu"])
+    for name in b:
+        assert a[name].dtype == b[name].dtype, name
+        np.testing.assert_array_equal(a[name], b[name], err_msg=name)
+    assert float(ts.drift_score(states["cuda"])) == pytest.approx(
+        float(ts.drift_score(states["cpu"])), rel=1e-6, abs=1e-7)
+
+
+def test_gated_off_engine_on_the_card_runs_diskann(dev):
+    """A gated-off catapult engine on the card launches no route
+    ``lsh_hash`` and exactly a diskann engine's kernels, with its ids;
+    a served maintainer is attached by ``serve()`` on the card by
+    default, and its folds run on the card."""
+    from repro_torch import db
+    from repro_torch.adapt import PolicyConfig
+    from repro_torch.core.vamana import VamanaParams, build_vamana
+    vec, _, qs, _ = _labeled_corpus(29)
+    graph = build_vamana(vec, VamanaParams(max_degree=16, build_beam=32),
+                         device=dev)
+    spec = dict(degree=16, build_beam=32)
+    cat = db.create(db.IndexSpec(adapt=PolicyConfig(), **spec), vec,
+                    prebuilt=graph)
+    disk = db.create(db.IndexSpec(mode="diskann", **spec), vec,
+                     prebuilt=graph)
+    assert cat.backend.device.type == "cuda"
+    cat.backend.catapult_enabled = False
+    got = {}
+    for name, d in (("gated", cat), ("diskann", disk)):
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        r = d.search(qs, k=10)
+        torch.cuda.synchronize()
+        got[name] = (r, dict(ops.LAUNCHES))
+    assert got["gated"][1]["lsh_hash"] == 0
+    assert got["gated"][1] == got["diskann"][1]
+    np.testing.assert_array_equal(got["gated"][0].ids, got["diskann"][0].ids)
+    np.testing.assert_array_equal(got["gated"][0].stats.hops,
+                                  got["diskann"][0].stats.hops)
+    cat.backend.catapult_enabled = True
+    fe = cat.serve(max_batch=32)
+    assert fe.maintainer is cat.maintainer is not None
+    fe.search(qs)
+    state = cat.backend.adapt_state
+    assert state.recent.device.type == "cuda" and int(state.n_queries) > 0

@@ -228,17 +228,18 @@ def test_public_constructors_default_to_the_card(build):
     ("tier", "disk"), ("pq", 4), ("adapt", object()), ("io", object()),
     ("ingest", object()), ("tiered", object())])
 def test_unported_spec_fields_raise_capability_error(field, value):
-    """Every field this port lacks raises; ``pq`` is ported on the RAM
-    tier and raises only with a tier that is not (through ``tier``)."""
+    """Every field this port lacks raises; ``pq`` and ``adapt`` are ported
+    on the RAM tier and raise only with a tier that is not (through
+    ``tier``)."""
     kw = {field: value}
-    if field == "pq":
-        assert tdb.IndexSpec(pq=value).pq == value
+    if field in ("pq", "adapt"):
+        assert getattr(tdb.IndexSpec(**kw), field) is value
         kw.update(tier="disk", path="unused.ctpl")
     if field == "tier":
         kw["path"] = "unused.ctpl"
     with pytest.raises(tdb.CapabilityError, match="ROADMAP") as err:
         tdb.IndexSpec(**kw)
-    if field == "pq":
+    if field in ("pq", "adapt"):
         assert "IndexSpec.tier" in str(err.value)
 
 
@@ -276,10 +277,12 @@ def test_explain_metrics_and_request_spelling(corpus, queries, graph):
 
 @pytest.mark.parametrize("op", ["save", "serve", "io_stats"])
 def test_unported_database_methods_raise(corpus, graph, op):
+    """``serve`` is ported; its ``ingest=`` pump is not."""
     port = tdb.create(tdb.IndexSpec(mode="diskann", **SPEC), corpus[0],
                       prebuilt=graph, device="cpu")
+    kw = {"ingest": True} if op == "serve" else {}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(port, op)()
+        getattr(port, op)(**kw)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
