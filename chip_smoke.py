@@ -31,7 +31,13 @@ then:
    graph), ``mode="lsh_apg"`` and ``search_two_phase`` under both hop
    backends, and a stationary stream of uniform queries served through
    ``db.serve(max_batch=64)`` with the adapt layer's production
-   ``PolicyConfig()`` on a card twin and a CPU twin;
+   ``PolicyConfig()`` on a card twin and a CPU twin; then the disk tier
+   (``IndexSpec(tier="disk", pq=8)``, a CTPL store in a temporary
+   directory) over the graph: catapult, fused and diskann twins in a
+   cold (2 frames) and a warm (1,250 frames) cache regime, CPU twins
+   over copies of the card twins' files, a pipelined twin, save /
+   ``sniff`` / reopen, and mutations whose card and CPU block files must
+   end byte-identical;
 3. filtered search: ``make_papers()`` (20,000 x 24, 16 labels, 2,048
    queries, each with its own label), one ``build_stitched_graph`` on
    the card, then the four twins with ``IndexSpec(filters=True)``, at
@@ -51,8 +57,12 @@ then:
    filtered search over a stitched-shaped (1M, 64 + 32) adjacency with
    16 labels, an upsert of 64 rows and a delete of 4,096, and
    ``mode="lsh_apg"`` (its build hashes every row), all at 1M rows,
-   ``consolidate`` on the 20,000-row slice, and ``db.serve(max_batch=
-   4096)`` at 1M rows in turns with and without the maintainer.
+   ``consolidate`` on the 20,000-row slice, ``db.serve(max_batch=
+   4096)`` at 1M rows in turns with and without the maintainer, and the
+   disk tier at 1M rows (a 3.58 GB store, 62,500 cache frames): catapult,
+   fused and diskann twins, 4 explained batches of 4,096 each (block
+   reads, hit rate, route / fetch / rerank time, idle share), the
+   engine's device memory, and a reopen.
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
@@ -61,7 +71,8 @@ after it; each path must show exactly the launches its batches imply
 masked search stays on the composed hop, insert searches and builds
 launch ``gather_distance`` alone, deletes and consolidates launch
 nothing, a maintainer's telemetry fold launches one ``lsh_hash`` and
-its shadow and gated-off batches run the diskann path).
+its shadow and gated-off batches run the diskann path; a disk search
+launches no ``gather_distance``, its rerank being on the host).
 Any failed check exits non-zero.  Prints the
 card's name and power limit first, a ``{"kernels": [...]}`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -73,6 +84,7 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import tempfile
 import sys
@@ -109,6 +121,11 @@ ADAPT_EVENTS = ("ticks", "ttl_evicted", "flushed_entries", "drift_flushes",
 STATIONARY_QUERIES = 12_288    # 192 batches: a shadow every 48
 STATIONARY_TICK = 4
 DEPLOY_FLUSHES = 16            # flushes of 4,096 at 1M x 768, each side
+DISK_TWINS = (("catapult", "catapult", "unfused"),
+              ("fused", "catapult", "fused"),
+              ("diskann", "diskann", "unfused"))
+DISK_UPSERT = 256              # keyed rows upserted into the tripclick store
+DISK_REOPEN_LANES = 1024       # the 1M reopen check's publish=False batch
 
 
 class SmokeFailure(RuntimeError):
@@ -619,7 +636,7 @@ def counted(fn):
 
 def expected_launches(mode: str, hop_backend: str, loop_iters,
                       pq: bool = False, filtered: bool = False,
-                      folds: int = 0) -> dict:
+                      folds: int = 0, disk: bool = False) -> dict:
     """Kernel launches of a run of search batches whose beam searches
     took ``loop_iters`` loop iterations each (a batch's iterations are the
     largest ``hops`` of its lanes).  The composed hop's distance kernel
@@ -631,7 +648,9 @@ def expected_launches(mode: str, hop_backend: str, loop_iters,
     every iteration are one composed-distance launch unfused, one
     fused-hop launch fused, and always composed on a filtered engine (a
     predicate mask keeps the search off the fused kernels); PQ reranks
-    the final beam with one ``gather_distance`` launch.  A maintainer's
+    the final beam with one ``gather_distance`` launch, except on the
+    disk tier (``disk``: PQ traversal, rerank on the host from the
+    fetched blocks, so no ``gather_distance`` at all).  A maintainer's
     telemetry fold of a batch (``folds`` of them) hashes it once more,
     one ``lsh_hash`` launch each; its shadow and gated-off batches are
     diskann batches (``serve_launches``).  ``l2_distance`` is on no
@@ -648,7 +667,7 @@ def expected_launches(mode: str, hop_backend: str, loop_iters,
         out[composed] += 2 * nb
     hop = fused if hop_backend == "fused" and not filtered else composed
     out[hop] += nb + it
-    if pq:
+    if pq and not disk:
         out["gather_distance"] += nb
     out["lsh_hash"] += folds
     return out
@@ -784,12 +803,14 @@ def two_phase_launches(mode: str, hop_backend: str, hops,
 
 def replay(database, queries, batch=256, passes=2, filter_labels=None,
            two_phase=False):
-    """Replay the queries in order, ``passes`` times; per-pass results.
+    """Replay the queries in order, ``passes`` times; per-pass results
+    (with ``block_reads`` and ``cache_hits`` on the disk tier).
     ``two_phase`` replays through ``search_two_phase`` (phase 1 of
     ``PHASE1_ITERS`` iterations) instead of ``Database.search``."""
     res = []
     for _ in range(passes):
         ids, hops, used, won, ms, iters = [], [], [], [], [], []
+        reads, hits = [], []
         for lo in range(0, queries.shape[0], batch):
             q = queries[lo: lo + batch]
             t0 = time.perf_counter()
@@ -806,20 +827,26 @@ def replay(database, queries, batch=256, passes=2, filter_labels=None,
             used.append(st.used)
             won.append(st.won)
             iters.append(int(st.hops.max()))
+            if st.block_reads is not None:
+                reads.append(st.block_reads)
+                hits.append(st.cache_hits)
         res.append(dict(ids=np.concatenate(ids), hops=np.concatenate(hops),
                         used=np.concatenate(used), won=np.concatenate(won),
                         batch_hops=hops, batch_ms=ms, loop_iters=iters))
+        if reads:
+            res[-1].update(block_reads=np.concatenate(reads),
+                           cache_hits=np.concatenate(hits))
     return res
 
 
 def path_launches(mode, hb, passes, pq=False, filtered=False,
-                  two_phase=False) -> dict:
+                  two_phase=False, disk=False) -> dict:
     """What a replay's batches imply: ``expected_launches`` over their
     loop iterations, or ``two_phase_launches`` batch by batch."""
     if not two_phase:
         return expected_launches(mode, hb,
                                  [i for p in passes for i in p["loop_iters"]],
-                                 pq=pq, filtered=filtered)
+                                 pq=pq, filtered=filtered, disk=disk)
     out = expected_launches(mode, hb, [])
     for p in passes:
         for hops in p["batch_hops"]:
@@ -1001,11 +1028,392 @@ def phase_main_path(seed: int, dev) -> dict:
     out["pq"] = replay_twins(wl, truth, graph, dev, pq=8)
     for name, fn in (("mutations", phase_mutations), ("modes", phase_modes),
                      ("adapt_stationary", lambda *a: phase_adapt_stationary(
-                         *a, seed))):
+                         *a, seed)), ("disk", phase_disk)):
         t0 = time.perf_counter()
         out[name] = fn(wl, graph, dev)
         out[name]["seconds"] = time.perf_counter() - t0
         print(f"phase {name}: {out[name]['seconds']:.1f} s", flush=True)
+    return out
+
+
+def copy_store(src: str, dst: str) -> None:
+    """A CTPL file and its ``.io.json``: a twin opens the copy."""
+    shutil.copyfile(src, dst)
+    shutil.copyfile(src + ".io.json", dst + ".io.json")
+
+
+def disk_pass_stats(p: dict) -> dict:
+    reads = p["block_reads"].astype(np.float64)
+    hits = p["cache_hits"].astype(np.float64)
+    return dict(mean_hops=float(p["hops"].mean()),
+                block_reads_per_query=float(reads.mean()),
+                cache_hits_per_query=float(hits.mean()),
+                hit_rate=float(hits.sum() / max((hits + reads).sum(), 1.0)),
+                used=float(p["used"].mean()),
+                batch_ms_mean=float(np.mean(p["batch_ms"])))
+
+
+def twin_agreement(a: list, b: list) -> dict:
+    """Share of queries whose ids (all k), hops, block reads and cache
+    hits are equal in two replays, over both passes."""
+    out = {}
+    for fld in ("ids", "hops", "block_reads", "cache_hits"):
+        eq = [(x[fld] == y[fld]).reshape(x[fld].shape[0], -1).all(1)
+              for x, y in zip(a, b)]
+        out[fld] = float(np.concatenate(eq).mean())
+    return out
+
+
+def phase_disk(wl, graph, dev) -> dict:
+    """The disk tier over the tripclick graph, ``IndexSpec(tier="disk",
+    pq=8)`` with the store in a temporary directory, replayed twice in
+    batches of 256 at the disk engine's default beam (max(3k, 24) = 30).
+
+    * twins: catapult, fused catapult and diskann on the card, in two
+      cache regimes (``benchmarks/bench_disk.py``'s "cold", 2 frames,
+      and "warm", corpus/16 = 1,250 frames); in each regime a CPU twin
+      of each opens a copy of the card twin's file (same codebook).
+      Fused and unfused, and card and CPU, ids, hops, block reads and
+      cache hits are equal; catapult's pass-2 block reads per query are
+      below diskann's in both regimes; one explained batch of each warm
+      twin splits its time into route, fetch and rerank;
+    * an ``IoSpec(pipeline=True)`` twin returns the synchronous twin's
+      ids and hops;
+    * reopen: the warm catapult twin, its maintainer attached, is
+      ``save()``d; ``sniff`` gives ('disk', 3) and the reopened
+      database's ``publish=False`` ids and distances equal the live
+      one's;
+    * mutations: a keyed upsert of 256 rows, a delete of half of them by
+      key and a consolidate on a card twin and a CPU twin that opened a
+      copy of its file; after every step the two block files are
+      byte-identical;
+    * launches: every search path launches what ``expected_launches(...,
+      pq=True, disk=True)`` gives, ``gather_distance`` never (the rerank
+      is on the host); an upsert's insert search ``gather_distance``
+      alone; a delete and a consolidate nothing."""
+    from repro_torch import db
+    from repro_torch.core.engine import recall_at_k
+    truth = brute_force_knn_cuda(wl.corpus, wl.queries, 10, dev)
+    n = wl.corpus.shape[0]
+    regimes = {"cold": 2, "warm": max(256, n // 16)}
+    out, paths, runs, opened, cards = {}, {}, {}, [], {}
+    tmp = tempfile.mkdtemp(prefix="disk_")
+
+    def spec(tag, frames, **kw):
+        return db.IndexSpec(tier="disk", pq=8, cache_frames=frames,
+                            path=os.path.join(tmp, f"{tag}.ctpl"), **kw)
+
+    try:
+        for regime, frames in regimes.items():
+            for name, mode, hb in DISK_TWINS:
+                tag = f"disk_{regime}_{name}"
+
+                def drive(tag=tag, frames=frames, mode=mode, hb=hb):
+                    d = cards[tag] = db.create(
+                        spec(tag, frames, mode=mode, hop_backend=hb),
+                        wl.corpus, prebuilt=graph)
+                    opened.append(d)
+                    return replay(d, wl.queries)
+
+                runs[tag], paths[tag] = counted(drive)
+                want = path_launches(mode, hb, runs[tag], pq=True, disk=True)
+                check(paths[tag] == want and paths[tag]["gather_distance"]
+                      == 0, f"{tag} replay launched {paths[tag]}, its "
+                            f"batches imply {want}")
+                dst = os.path.join(tmp, f"{tag}_cpu.ctpl")
+                copy_store(cards[tag].spec.path, dst)
+                c = db.open(dst, mode=mode, spec=db.IndexSpec(
+                    hop_backend=hb, cache_frames=frames), device="cpu")
+                opened.append(c)
+                runs[tag + "_cpu"] = replay(c, wl.queries)
+            for i in range(2):
+                for fld in ("ids", "hops", "block_reads", "cache_hits"):
+                    check(np.array_equal(
+                        runs[f"disk_{regime}_fused"][i][fld],
+                        runs[f"disk_{regime}_catapult"][i][fld]),
+                        f"disk {regime}: hop_backend='fused' {fld} differ "
+                        f"from 'unfused' (pass {i + 1})")
+        for tag, passes in runs.items():
+            for i, p in enumerate(passes):
+                out[f"{tag}_pass{i + 1}"] = dict(
+                    disk_pass_stats(p),
+                    recall_at_10=recall_at_k(p["ids"], truth))
+        for regime in regimes:
+            c2 = out[f"disk_{regime}_catapult_pass2"]
+            d2 = out[f"disk_{regime}_diskann_pass2"]
+            check(c2["block_reads_per_query"] < d2["block_reads_per_query"],
+                  f"disk {regime}: catapult's pass-2 block reads a query "
+                  f"{c2['block_reads_per_query']} are not below diskann's "
+                  f"{d2['block_reads_per_query']}")
+            check(c2["mean_hops"] < out[f"disk_{regime}_catapult_pass1"]
+                  ["mean_hops"], f"disk {regime}: catapult hops did not "
+                                 f"fall on the second pass")
+        for tag in cards:
+            agree = twin_agreement(runs[tag], runs[tag + "_cpu"])
+            out[f"{tag}_cpu_agreement"] = agree
+            check(all(v == 1.0 for v in agree.values()),
+                  f"{tag}: the CPU twin over the same file differs from the "
+                  f"card twin (shares of queries equal: {agree})")
+        for name, _, _ in DISK_TWINS:
+            tag = f"disk_warm_{name}"
+            # where a batch's time goes: one explained publish=False batch
+            tr = cards[tag].search(wl.queries[-256:], k=10, publish=False,
+                                   explain=True)
+            out[f"{tag}_stages_batch_256"] = dict(
+                total_ms=tr.total_ms,
+                **{f"{st}_ms": tr.stage_ms(st)
+                   for st in ("route", "fetch", "rerank")})
+
+        # the async I/O pipeline: results of the synchronous engine
+        def piped():
+            d = db.create(spec("disk_pipeline", regimes["warm"],
+                               io=db.IoSpec(pipeline=True)), wl.corpus,
+                          prebuilt=graph)
+            opened.append(d)
+            return d, replay(d, wl.queries)
+
+        (pd, pruns), paths["disk_pipeline"] = counted(piped)
+        want = path_launches("catapult", "unfused", pruns, pq=True, disk=True)
+        check(paths["disk_pipeline"] == want,
+              f"disk pipeline replay launched {paths['disk_pipeline']}, its "
+              f"batches imply {want}")
+        for i in range(2):
+            for fld in ("ids", "hops"):
+                check(np.array_equal(pruns[i][fld],
+                                     runs["disk_warm_catapult"][i][fld]),
+                      f"IoSpec(pipeline=True): {fld} differ from the "
+                      f"synchronous engine's (pass {i + 1})")
+        out["disk_pipeline_io"] = pd.io_stats()._asdict()
+
+        # save, sniff, reopen
+        warm_cat = cards["disk_warm_catapult"]
+        t0 = time.perf_counter()
+        warm_cat.attach_maintainer()
+        warm_cat.save()
+        out["disk_save_s"] = time.perf_counter() - t0
+        path = warm_cat.spec.path
+        out["disk_sniff"] = db.sniff(path)
+        check(out["disk_sniff"] == ("disk", 3),
+              f"sniff gave {out['disk_sniff']}")
+        t0 = time.perf_counter()
+        back = db.open(path, spec=db.IndexSpec(cache_frames=regimes["warm"]))
+        opened.append(back)
+        out["disk_reopen_s"] = time.perf_counter() - t0
+        q = wl.queries[-256:]
+        live = warm_cat.search(q, k=10, publish=False)
+        got, paths["disk_reopen"] = counted(
+            lambda: back.search(q, k=10, publish=False))
+        want = expected_launches("catapult", "unfused",
+                                 [int(got.stats.hops.max())], pq=True,
+                                 disk=True)
+        check(paths["disk_reopen"] == want,
+              f"the reopened search launched {paths['disk_reopen']}, its "
+              f"batch implies {want}")
+        check(np.array_equal(got.ids, live.ids)
+              and got.dists.tobytes() == live.dists.tobytes(),
+              "the reopened disk database's publish=False results differ "
+              "from the live one's")
+        out["disk_mutations"] = disk_mutations(wl, graph, spec, regimes,
+                                               paths, opened, tmp)
+    finally:
+        for d in opened:
+            d.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = paths
+    for k, v in out.items():
+        if k != "launches":
+            print(f"disk {k}: {v}")
+    return out
+
+
+def disk_mutations(wl, graph, spec, regimes, paths, opened, tmp) -> dict:
+    """Keyed upsert of ``DISK_UPSERT`` rows, delete of half of them by key,
+    consolidate: a card twin and a CPU twin over a copy of its file end
+    every step with byte-identical block files; no dead id returned."""
+    from repro_torch import db
+    rng = np.random.default_rng(DISK_UPSERT)
+    n = wl.corpus.shape[0]
+    new = (wl.corpus[rng.integers(0, n, DISK_UPSERT)]
+           + 0.25 * rng.normal(size=(DISK_UPSERT, wl.corpus.shape[1]))
+           ).astype(np.float32)
+    keys = list(range(DISK_UPSERT))
+    card = db.create(spec("disk_mut", regimes["warm"],
+                          spare_capacity=DISK_UPSERT), wl.corpus,
+                     prebuilt=graph)
+    opened.append(card)
+    cpu_path = os.path.join(tmp, "disk_mut_cpu.ctpl")
+    copy_store(card.spec.path, cpu_path)
+    cpu = db.open(cpu_path, spec=db.IndexSpec(cache_frames=regimes["warm"]),
+                  device="cpu")
+    opened.append(cpu)
+    out = {}
+    for name, fn in (("upsert", lambda d: d.upsert(new, keys=keys)),
+                     ("delete", lambda d: d.delete(keys=keys[128:])),
+                     ("consolidate", lambda d: d.consolidate())):
+        t0 = time.perf_counter()
+        got, paths[f"disk_mutation_{name}"] = counted(lambda: fn(card))
+        out[f"{name}_s"] = time.perf_counter() - t0
+        fn(cpu)
+        n_calls = paths[f"disk_mutation_{name}"]
+        if name == "upsert":
+            gids = got
+            check(n_calls["gather_distance"] > 0
+                  and sum(n_calls.values()) == n_calls["gather_distance"],
+                  f"the disk upsert's insert searches launched {n_calls}")
+            check(tuple(card.backend._vec.shape) == (1, wl.corpus.shape[1]),
+                  "the disk upsert left a vector table on the card")
+        else:
+            check(not any(n_calls.values()),
+                  f"disk {name} launched {n_calls}")
+        same = Path(card.spec.path).read_bytes() == Path(cpu_path).read_bytes()
+        out[f"{name}_files_identical"] = same
+        check(same, f"disk mutation {name}: the card twin's block file "
+                    f"differs from the CPU twin's")
+    dead = gids[128:]
+    r = card.search(new, k=10)
+    out["dead_returned"] = int(np.isin(r.ids, dead).sum())
+    out["upserted_own_top1"] = float(np.mean(r.ids[:128, 0] == gids[:128]))
+    check(out["dead_returned"] == 0, f"dead ids came back: {out}")
+    return out
+
+
+def deploy_disk(vec_np, graph, queries, paths, dev) -> dict:
+    """1,000,000 x 768 on the disk tier: ``IndexSpec(tier="disk", pq=8)``
+    writes 1,000,000 blocks of 3,584 B; cache frames corpus/16 = 62,500
+    (bench_disk's warm regime); the disk engine's default beam
+    (max(3k, 24) = 30).  Catapult unfused (the created database), catapult
+    fused and diskann unfused (each ``open``ed over the same file) run 4
+    batches of 4,096, explained: per batch the route, fetch and rerank
+    times, per query the block reads and cache hits; the last batch of
+    each under the profiler (device busy time, idle share).  The engine's
+    device memory after ``create`` and after ``open`` must stay well
+    under the vector table's; ``gather_distance`` never launches; the
+    catapult database, saved with its maintainer attached and reopened,
+    returns the live ids with ``publish=False``."""
+    from repro_torch import db
+    from repro_torch.store.layout import HEADER_SIZE, block_size_for
+    out, dbs = {}, {}
+    tmp = tempfile.mkdtemp(prefix="deploy_disk_")
+    n = N
+    store_bytes = HEADER_SIZE + n * block_size_for(D, 64)
+    free = shutil.disk_usage(tmp).free
+    out.update(store_bytes=store_bytes, free_disk_bytes=free)
+    print(f"deployment disk: {free / 1e9:.1f} GB free where the store goes, "
+          f"the store takes {store_bytes / 1e9:.2f} GB", flush=True)
+    if free < 2 * store_bytes:
+        n = max(20_000, int(N * free / (2 * store_bytes)) // 1000 * 1000)
+        print(f"reduced: the disk deployment phase stores {n:,} rows, not "
+              f"{N:,}: {free / 1e9:.1f} GB free where the store goes",
+              flush=True)
+    adj = graph[0] if n == N else np.where(graph[0][:n] < n, graph[0][:n], -1)
+    frames = n // 16
+    table_bytes = n * D * 4
+    path = os.path.join(tmp, "deploy.ctpl")
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        d, paths["deployment_disk_create"] = counted(lambda: db.create(
+            db.IndexSpec(tier="disk", path=path, dim=D, degree=64, pq=PQ_M,
+                         cache_frames=frames), vec_np[:n],
+            prebuilt=(adj, graph[1] if n == N else 0)))
+        out["create_s"] = time.perf_counter() - t0
+        dbs["catapult_unfused"] = d
+        check(not any(paths["deployment_disk_create"].values()),
+              f"deployment disk: create launched "
+              f"{paths['deployment_disk_create']}")
+        out["device_bytes_after_create"] = torch.cuda.memory_allocated() - base
+        out["vector_table_bytes"] = table_bytes
+        for name, mode, hb in (("catapult_fused", "catapult", "fused"),
+                               ("diskann_unfused", "diskann", "unfused")):
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            dbs[name] = db.open(path, mode=mode, spec=db.IndexSpec(
+                hop_backend=hb, cache_frames=frames))
+            out[f"open_s_{name}"] = time.perf_counter() - t0
+            out[f"device_bytes_after_open_{name}"] = \
+                torch.cuda.memory_allocated() - before
+        for key in [k for k in out if k.startswith("device_bytes_after")]:
+            check(out[key] < table_bytes / 4,
+                  f"deployment disk: the engine holds {out[key]} bytes on "
+                  f"the card ({key}), not well under the {table_bytes}-byte "
+                  f"vector table")
+        ids = {}
+        for name, d in dbs.items():
+            mode, hb = name.split("_")
+            traces, busy = [], []
+
+            def drive(d=d, traces=traces, busy=busy):
+                for i in range(4):
+                    def one(i=i):
+                        traces.append(d.search(queries[i * B: (i + 1) * B],
+                                               k=10, explain=True))
+                    if i == 3:
+                        busy.append(device_busy_ms(one))
+                    else:
+                        one()
+
+            _, paths[f"deployment_disk_{name}"] = counted(drive)
+            iters = [int(t.hops.max()) for t in traces]
+            want = expected_launches(mode, hb, iters, pq=True, disk=True)
+            check(paths[f"deployment_disk_{name}"] == want
+                  and want["gather_distance"] == 0,
+                  f"deployment disk {name}: launched "
+                  f"{paths[f'deployment_disk_{name}']}, its batches imply "
+                  f"{want}")
+            ids[name] = np.concatenate([t.ids for t in traces])
+            reads = np.concatenate([t.blocks_read for t in traces])
+            hits = np.concatenate([t.cache_hits for t in traces])
+            last = traces[-1]
+            out[name] = dict(
+                batch_ms=[t.total_ms for t in traces],
+                route_ms=[t.stage_ms("route") for t in traces],
+                fetch_ms=[t.stage_ms("fetch") for t in traces],
+                rerank_ms=[t.stage_ms("rerank") for t in traces],
+                loop_iterations=iters,
+                mean_hops=float(np.mean([t.hops.mean() for t in traces])),
+                block_reads_per_query=float(reads.mean()),
+                cache_hits_per_query=float(hits.mean()),
+                hit_rate=float(hits.sum() / max(hits.sum() + reads.sum(), 1)),
+                used=float(np.mean([t.catapult_used for t in traces]) / B),
+                last_batch=dict(wall_ms=last.total_ms,
+                                device_busy_ms=busy[0],
+                                idle_share=(1.0 - busy[0] / last.total_ms)
+                                if busy[0] > 0 else None),
+                io_stats=d.io_stats()._asdict())
+            print(f"deployment disk {name}: {out[name]}", flush=True)
+        check(np.array_equal(ids["catapult_unfused"], ids["catapult_fused"]),
+              "deployment disk: fused and unfused ids differ")
+        cat = dbs["catapult_unfused"]
+        cat.attach_maintainer()
+        t0 = time.perf_counter()
+        cat.save()
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dbs["reopened"] = back = db.open(path, spec=db.IndexSpec(
+            cache_frames=frames))
+        out["reopen_s"] = time.perf_counter() - t0
+        q = queries[:DISK_REOPEN_LANES]
+        live = cat.search(q, k=10, publish=False)
+        got, paths["deployment_disk_reopen"] = counted(
+            lambda: back.search(q, k=10, publish=False))
+        want = expected_launches("catapult", "unfused",
+                                 [int(got.stats.hops.max())], pq=True,
+                                 disk=True)
+        check(paths["deployment_disk_reopen"] == want,
+              f"deployment disk: the reopened search launched "
+              f"{paths['deployment_disk_reopen']}, its batch implies {want}")
+        out["reopen_ids_equal"] = bool(np.array_equal(got.ids, live.ids))
+        check(out["reopen_ids_equal"], "deployment disk: the reopened "
+                                       "database's publish=False ids differ "
+                                       "from the live one's")
+    finally:
+        for d in dbs.values():
+            d.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["rows"] = n
+    print("deployment disk: " + str({k: v for k, v in out.items()
+                                     if k not in dbs}), flush=True)
     return out
 
 
@@ -1576,7 +1984,9 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
                                                ids)),
             ("consolidate", lambda: deploy_consolidate(
                 vec_np[:n96], graph96, queries, rng, paths)),
-            ("serve", lambda: deploy_serve(vectors, vec_np, graph, dev))):
+            ("serve", lambda: deploy_serve(vectors, vec_np, graph, dev)),
+            ("disk", lambda: deploy_disk(vec_np, graph, queries, paths,
+                                         dev))):
         t0 = time.perf_counter()
         out[name] = fn()
         out[name]["seconds"] = time.perf_counter() - t0
@@ -1920,6 +2330,7 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
                "l2_distance": ("l2_distance.cu", "l2_distance.py:35")}
     by_path = {**main_path["launches"], **main_path["pq"]["launches"],
                **main_path["mutations"]["launches"],
+               **main_path["disk"]["launches"],
                **main_path["modes"]["launches"], **filtered["launches"],
                **filtered["pq"]["launches"],
                "adapt_stationary": main_path["adapt_stationary"]["launches"],

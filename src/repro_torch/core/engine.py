@@ -1,7 +1,7 @@
 """VectorSearchEngine — the RAM-tier facade over the paper's machinery.
 
-Port of ``repro/core/engine.py`` for the RAM tier.  One engine object =
-one index + one acceleration mode:
+Port of ``repro/core/engine.py``.  One engine object = one index + one
+acceleration mode:
 
 * ``mode='diskann'``   — vanilla Vamana beam search from the medoid
                          (the paper's primary baseline),
@@ -21,7 +21,11 @@ Orthogonal features, composable with every mode as in the reference:
 The search path runs on the engine's ``device`` (the card by default);
 the host keeps numpy mirrors for graph surgery (build, insert,
 consolidate).  An insert writes only the rows it touched back to the
-device; a consolidate uploads the adjacency whole.
+device; a consolidate uploads the adjacency whole.  The mirrors are
+views supplied by a storage backend — ``RamStore`` arrays here, the
+memmap'd block file of ``DiskStore`` for the disk tier
+(``repro_torch.store.io_engine``), which swaps the backend in through
+``_make_store``.
 """
 from __future__ import annotations
 
@@ -50,6 +54,9 @@ class SearchStats(NamedTuple):
     ndists: np.ndarray        # (B,) distance computations
     used: np.ndarray          # (B,) bool catapult used (catapult mode only)
     won: np.ndarray           # (B,) bool catapult beat fallback
+    # disk-backed engines only (None on the RAM path):
+    block_reads: Optional[np.ndarray] = None   # (B,) node blocks read
+    cache_hits: Optional[np.ndarray] = None    # (B,) node cache hits
 
 
 class RamStore:
@@ -63,6 +70,31 @@ class RamStore:
     def allocate(cls, capacity: int, dim: int, degree: int) -> 'RamStore':
         return cls(np.zeros((capacity, dim), np.float32),
                    np.full((capacity, degree), -1, np.int32))
+
+
+class DiskStore:
+    """Disk-resident backend: views into a block-aligned store file.
+
+    ``vectors``/``adjacency`` are strided memmap views into per-node
+    blocks (``repro_torch.store.layout``), so insert-time graph surgery
+    writes disk pages in place; the disk engine persists them through
+    ``block_store.flush``.
+    """
+
+    def __init__(self, block_store):
+        self.block_store = block_store
+        self.vectors = block_store.vectors
+        self.adjacency = block_store.adjacency
+
+    @classmethod
+    def create(cls, path: str, capacity: int, dim: int, degree: int,
+               has_labels: bool = False) -> 'DiskStore':
+        from repro_torch.store import layout   # lazy: breaks an import cycle
+        return cls(layout.create_store(path, capacity=capacity, dim=dim,
+                                       degree=degree, has_labels=has_labels))
+
+    def close(self) -> None:
+        self.block_store.close()
 
 
 def brute_force_knn(vectors: np.ndarray, queries: np.ndarray, k: int,
@@ -104,6 +136,7 @@ class VectorSearchEngine:
     pq_subspaces: Optional[int] = None
     seed: int = 0
     capacity: Optional[int] = None  # adjacency row preallocation for inserts
+    store: Optional[object] = None  # storage backend; default RamStore
     # traversal hop implementation: "unfused" (gather-distance kernel +
     # torch merge) or "fused" (one fused-hop kernel per hop).  Results
     # are bit-identical; filtered searches always take the composed hop.
@@ -172,8 +205,14 @@ class VectorSearchEngine:
                                         device=self.device)
             self._label_entry_np = None
             self._labels_np = None
-        store = RamStore.allocate(cap, d, adj.shape[1])
-        sv, sa = store.vectors, store.adjacency
+        # the host mirrors are views of the storage backend from here on
+        # (a prebuilt graph is copied in, never shared by reference)
+        if self.store is None:
+            self.store = self._make_store(cap, d, adj.shape[1])
+        sv, sa = self.store.vectors, self.store.adjacency
+        if sv.shape != (cap, d) or sa.shape != (cap, adj.shape[1]):
+            raise ValueError(f"store geometry {sv.shape}, {sa.shape} does "
+                             f"not match ({cap}, {d}), degree {adj.shape[1]}")
         rows = min(adj.shape[0], cap)
         sa[:rows] = adj[:rows]
         sa[rows:] = -1
@@ -189,6 +228,10 @@ class VectorSearchEngine:
         self._init_aux(vectors)
         self._sync_device()
         return self
+
+    def _make_store(self, capacity: int, dim: int, degree: int):
+        """Backend factory — the disk engine swaps RAM for a block file."""
+        return RamStore.allocate(capacity, dim, degree)
 
     def _init_aux(self, vectors: np.ndarray,
                   pq_codebook: pq_mod.PQCodebook | None = None) -> None:
@@ -235,18 +278,35 @@ class VectorSearchEngine:
             self._codes_np = codes
 
     # ---------------------------------------------------------------- device
+    def _upload(self, a: np.ndarray | None) -> torch.Tensor | None:
+        """A host mirror on the engine's device (shares memory with it on
+        the CPU)."""
+        return None if a is None else torch.as_tensor(a, device=self.device)
+
     def _sync_device(self) -> None:
         """Upload every host mirror whole (build, and after a codebook
         or graph is carried over)."""
-        def up(a):
-            return None if a is None else torch.as_tensor(a,
-                                                          device=self.device)
+        up = self._upload
         self._adj = up(self._adj_np)
         self._vec = up(self._vec_np)
         self._tomb = up(self._tomb_np)
         self._labels = up(self._labels_np)
         self._label_entry = up(self._label_entry_np)
         self._codes = up(self._codes_np) if self.pq_subspaces else None
+
+    @property
+    def cache_stats(self):
+        """Uniform across tiers: the RAM engine has no block cache, so
+        its record is all-zero rather than absent."""
+        from repro_torch.store.cache import CacheStats
+        return CacheStats(hits=0, misses=0, block_reads=0,
+                          prefetch_batches=0, batched_reads=0)
+
+    def io_stats(self, reset: bool = False):
+        """Tier-uniform typed I/O record; the RAM engine does no block
+        I/O, so the record is all-zero (and ``reset`` a no-op)."""
+        from repro_torch.store.cache import ZERO_IO_STATS
+        return ZERO_IO_STATS
 
     def tombstone_fraction(self) -> float:
         """Dead-row share of the active range — the maintainer's
@@ -398,9 +458,10 @@ class VectorSearchEngine:
         the rows the batch touched are written to the device."""
         new_vectors = np.ascontiguousarray(new_vectors, np.float32)
         start = self.n_active
+        vec = self._insert_table()
         self.n_active = ins.insert_batch(
             self._adj_np, self._vec_np, self.n_active, new_vectors,
-            self.medoid, self.vamana, self._adj, self._vec)
+            self.medoid, self.vamana, self._adj, vec)
         new = slice(start, self.n_active)
         self._tomb_np[new] = False
         self._tomb[new] = False
@@ -409,10 +470,15 @@ class VectorSearchEngine:
             self._labels[new] = torch.as_tensor(self._labels_np[new],
                                                 device=self.device)
         if self.pq_subspaces:
-            codes = pq_mod.encode(self._pq, self._vec[new])
+            codes = pq_mod.encode(self._pq, vec[new])
             self._codes_np[new] = codes.cpu().numpy()
             self._codes[new] = codes
         return np.arange(start, self.n_active, dtype=np.int64)
+
+    def _insert_table(self) -> torch.Tensor:
+        """The device vector table an insert searches and writes its rows
+        into: the engine's own mirror here."""
+        return self._vec
 
     def insert_batch(self, new_vectors: np.ndarray,
                      labels: np.ndarray | None = None) -> np.ndarray:
@@ -429,7 +495,7 @@ class VectorSearchEngine:
         if ids.size == 0:
             return
         self._tomb_np = ins.delete(self._tomb_np, ids)
-        self._tomb = torch.as_tensor(self._tomb_np, device=self.device)
+        self._tomb = self._upload(self._tomb_np)
         if self.mode == 'catapult':
             self._cat = dataclasses.replace(
                 self._cat, buckets=bk.evict_ids(self._cat.buckets, ids))
@@ -439,8 +505,7 @@ class VectorSearchEngine:
             self._label_entry_np = flt.refresh_label_entries(
                 self._label_entry_np, self._vec_np, self._labels_np,
                 self._tomb_np, self.n_active)
-            self._label_entry = torch.as_tensor(self._label_entry_np,
-                                                device=self.device)
+            self._label_entry = self._upload(self._label_entry_np)
 
     def _elect_medoid(self) -> int:
         """Deterministic medoid re-election over the live rows."""
@@ -455,7 +520,7 @@ class VectorSearchEngine:
         repaired rows."""
         repaired = ins.consolidate(self._adj_np, self._vec_np,
                                    self._tomb_np, self.n_active, self.vamana)
-        self._adj = torch.as_tensor(self._adj_np, device=self.device)
+        self._adj = self._upload(self._adj_np)
         return repaired
 
 

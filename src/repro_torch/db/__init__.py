@@ -1,4 +1,4 @@
-"""repro_torch.db — the port's front door (RAM tier).
+"""repro_torch.db — the port's front door (RAM and disk tiers).
 
     from repro_torch import db as catapultdb
 
@@ -7,15 +7,26 @@
     trace = d.search(queries, k=10, explain=True)          # SearchTrace
     scrape = d.metrics("prometheus")
 
-``create(..., device="cpu")`` runs the plain PyTorch path instead.
+    spec = catapultdb.IndexSpec(tier="disk", path="index.ctpl")
+    with catapultdb.create(spec, vectors) as d:            # CTPL block file
+        d.search(queries, k=10)
+        io = d.io_stats()                                  # IoStats
+        d.save()
+    with catapultdb.open("index.ctpl") as d:               # sniff() -> disk
+        d.search(queries, k=10)
+
+``create(..., device="cpu")`` / ``open(..., device="cpu")`` run the
+plain PyTorch path instead.
 """
 from repro_torch.db.database import Database
-from repro_torch.db.factory import create
-from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec,
+from repro_torch.db.factory import create, open, sniff
+from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec, IoSpec,
                                  SearchRequest, SearchResult)
 from repro_torch.obs import SearchTrace
+from repro_torch.store.cache import IoStats
 
 __all__ = [
-    "CapabilityError", "Caps", "Database", "IndexSpec", "SearchRequest",
-    "SearchResult", "SearchTrace", "create",
+    "CapabilityError", "Caps", "Database", "IndexSpec", "IoSpec", "IoStats",
+    "SearchRequest", "SearchResult", "SearchTrace", "create", "open",
+    "sniff",
 ]

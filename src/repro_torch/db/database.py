@@ -1,22 +1,25 @@
-"""The ``Database`` facade — RAM tier.
+"""The ``Database`` facade — RAM and disk tiers.
 
-Port of ``repro/db/database.py`` for the RAM tier: ``search`` (a
-``SearchRequest`` or a raw query array with keywords, per-request
-``publish`` and ``filter_labels``, ``explain=True`` traces),
-``upsert`` (with ``keys=`` for a true upsert), ``delete`` (by id or by
-key), ``consolidate``, ``serve`` (the micro-batching frontend, with the
+Port of ``repro/db/database.py`` for the RAM tier and the single-store
+disk tier: ``search`` (a ``SearchRequest`` or a raw query array with
+keywords, per-request ``publish`` and ``filter_labels``,
+``explain=True`` traces), ``upsert`` (with ``keys=`` for a true upsert),
+``delete`` (by id or by key), ``consolidate``, ``save`` (the engine's
+files plus the ``<store>.keys.npz`` key map), ``io_stats`` (all-zero on
+the RAM tier), ``serve`` (the micro-batching frontend, with the
 drift-aware maintainer attached when the spec carries an adapt policy),
 ``attach_maintainer``, ``metrics``, ``warm``, ``close`` and the host
 views.  Every search passes an explicit all-True or all-False
 ``publish_mask``, as the reference's does.  Mutations and maintainer
-ticks serialize on one lock; searches take none.  The persistence and
-ingest methods raise ``NotImplementedError`` naming, by title, the
-ROADMAP item that ports them.
+ticks serialize on one lock; searches take none.  The ingest methods
+raise ``NotImplementedError`` naming, by title, the ROADMAP item that
+ports them.
 """
 from __future__ import annotations
 
 import threading
 import time
+import warnings
 import weakref
 from functools import partial
 from typing import Optional
@@ -26,7 +29,8 @@ import numpy as np
 from repro_torch.adapt import CatapultMaintainer
 from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec,
                                  SearchRequest, SearchResult)
-from repro_torch.ingest.keys import KeyMap
+from repro_torch.ingest.keys import (KeyMap, ingest_state_path,
+                                     write_ingest_state)
 from repro_torch.obs import MetricsRegistry, TraceRecorder, build_search_trace
 from repro_torch.serving import VectorSearchFrontend
 
@@ -49,16 +53,46 @@ def _adapt_metrics(db_ref) -> dict:
                               np.floating))}
 
 
+def _io_metrics(db_ref) -> dict:
+    """The engine's ``IoStats`` as ``catapultdb_cache_*`` /
+    ``catapultdb_io_prefetch_*`` metrics (all-zero on the RAM tier)."""
+    db = db_ref()
+    if db is None:
+        return {}
+    st = db.backend.io_stats()
+    return {"catapultdb_cache_hits": float(st.hits),
+            "catapultdb_cache_misses": float(st.misses),
+            "catapultdb_cache_block_reads": float(st.block_reads),
+            "catapultdb_cache_prefetch_batches": float(st.prefetch_batches),
+            "catapultdb_cache_batched_reads": float(st.batched_reads),
+            "catapultdb_io_prefetch_issued": float(st.prefetch_issued),
+            "catapultdb_io_prefetch_completed":
+                float(st.prefetch_completed),
+            "catapultdb_io_prefetch_hits": float(st.prefetch_hits),
+            "catapultdb_io_prefetch_wasted": float(st.prefetch_wasted),
+            "catapultdb_io_prefetch_cancelled":
+                float(st.prefetch_cancelled)}
+
+
+def _keys_metrics(db_ref) -> dict:
+    db = db_ref()
+    if db is None:
+        return {}
+    return {"catapultdb_ingest_keys":
+            float(len(db._keymap) if db._keymap else 0)}
+
+
 def _not_ported(op: str, item: str):
     raise NotImplementedError(f"Database.{op} is not ported to repro_torch "
                               f"yet ({item})")
 
 
 class Database:
-    """CatapultDB handle over the RAM engine; construct via
-    ``repro_torch.db.create``, never directly."""
+    """CatapultDB handle over a RAM or disk engine; construct via
+    ``repro_torch.db.create`` or ``repro_torch.db.open``, never
+    directly."""
 
-    def __init__(self, backend, spec: IndexSpec, caps: Caps):
+    def __init__(self, backend, spec: IndexSpec, caps: Caps, keymap=None):
         self.backend = backend       # the internal engine
         self.spec = spec
         self.caps = caps
@@ -69,7 +103,7 @@ class Database:
         # shares the lock for its background consolidate; searches stay
         # lock-free
         self._mutate_lock = threading.RLock()
-        self.keys = KeyMap()         # caller keys <-> gids
+        self._keymap = keymap        # caller keys <-> gids (lazy)
         self.registry = MetricsRegistry(enabled=spec.metrics)
         reg = self.registry
         self._m_requests = reg.counter("catapultdb_search_requests_total")
@@ -80,18 +114,20 @@ class Database:
                                      edges=_HOP_EDGES)
         self._m_used = reg.counter("catapultdb_catapult_used_total")
         self._m_won = reg.counter("catapultdb_catapult_won_total")
+        self._m_block_reads = reg.counter("catapultdb_io_block_reads_total")
+        self._m_cache_hits = reg.counter("catapultdb_io_cache_hits_total")
         self._m_ing_rows = reg.counter("catapultdb_ingest_rows_total")
         self._m_ing_batches = reg.counter("catapultdb_ingest_batches_total")
         self._m_ing_reupserts = reg.counter(
             "catapultdb_ingest_reupserts_total")
         self._m_ing_deletes = reg.counter("catapultdb_ingest_deletes_total")
         if reg.enabled:
-            # holds the map, not the database, so that dropping the last
-            # reference to a database frees its tables at once
-            keys = self.keys
-            reg.register_collector(lambda: {
-                "catapultdb_ingest_keys": float(len(keys))})
-            reg.register_collector(partial(_adapt_metrics, weakref.ref(self)))
+            # weak references: the registry keeps no database alive, so
+            # dropping the last reference frees its tables at once
+            me = weakref.ref(self)
+            reg.register_collector(partial(_io_metrics, me))
+            reg.register_collector(partial(_adapt_metrics, me))
+            reg.register_collector(partial(_keys_metrics, me))
 
     def _record_search(self, batch: int, ms: float, stats,
                        explained: bool) -> None:
@@ -105,6 +141,9 @@ class Database:
         won = int(np.asarray(stats.won).sum())
         if won:
             self._m_won.inc(won)
+        if stats.block_reads is not None:
+            self._m_block_reads.inc(int(np.asarray(stats.block_reads).sum()))
+            self._m_cache_hits.inc(int(np.asarray(stats.cache_hits).sum()))
         if explained:
             self._m_explains.inc()
 
@@ -209,7 +248,7 @@ class Database:
                               np.int64)
             replaced = 0
             if keys is not None:
-                old = self.keys.assign(keys, gids)
+                old = self._ensure_keymap().assign(keys, gids)
                 stale = old[old >= 0]
                 if stale.size:
                     # true upsert: the replaced rows die after the new
@@ -234,7 +273,7 @@ class Database:
             raise TypeError("delete() takes exactly one of ids= or keys=")
         with self._mutate_lock:
             if keys is not None:
-                ids = self.keys.drop(keys)
+                ids = self._ensure_keymap().drop(keys)
             self.backend.delete(ids)
         if self.registry.enabled:
             self._m_ing_deletes.inc(int(np.asarray(ids).size))
@@ -244,6 +283,31 @@ class Database:
         self._need("mutable", "consolidate()")
         with self._mutate_lock:
             return self.backend.consolidate()
+
+    def _ensure_keymap(self) -> KeyMap:
+        if self._keymap is None:
+            self._keymap = KeyMap()
+        return self._keymap
+
+    @property
+    def keys(self) -> KeyMap:
+        """The caller-key <-> gid map; empty until the first keyed
+        upsert."""
+        return self._ensure_keymap()
+
+    # ---------------------------------------------------------------- persist
+    def save(self) -> None:
+        """Flush every persisted structure (blocks, tombstones, label
+        entries, catapult buckets + adapt telemetry where live, and the
+        key map once there is one) so that ``repro_torch.db.open(
+        spec.path)`` resumes this exact state."""
+        self._need("persistent", "save()")
+        with self._mutate_lock:
+            self.backend.save()
+            if self._keymap is not None:
+                write_ingest_state(
+                    ingest_state_path(self.caps.tier, self.spec.path),
+                    self._keymap)
 
     # ---------------------------------------------------------------- serve
     def serve(self, *, max_batch: int = 64, k: Optional[int] = None,
@@ -295,8 +359,9 @@ class Database:
     def warm(self, batch_shapes=None, *, k: Optional[int] = None,
              beam_width: Optional[int] = None) -> float:
         """One throwaway ``publish=False`` search per declared batch size
-        (bucket state untouched); on the card this builds and loads the
-        kernels and settles the allocator.  Returns elapsed ms."""
+        (bucket state untouched), then a cold start of the disk tier's
+        I/O counters; on the card this builds and loads the kernels and
+        settles the allocator.  Returns elapsed ms."""
         shapes = tuple(batch_shapes if batch_shapes is not None
                        else self.spec.warm_batch_shapes)
         breakdown: dict = {}
@@ -307,6 +372,9 @@ class Database:
             self.search(q, k=k, beam_width=beam_width, publish=False)
             breakdown[int(b)] = (time.perf_counter() - tb) * 1e3
         ms = (time.perf_counter() - t0) * 1e3
+        if shapes:
+            # the warm-up's block reads are not the workload's
+            self.io_stats(reset=True)
         self.last_warm_ms = ms
         # per-shape cost, so a first-query regression names its shape
         self.last_warm_breakdown = breakdown
@@ -317,7 +385,11 @@ class Database:
         return ms
 
     def close(self) -> None:
-        """The RAM tier holds no file or pool to release."""
+        """Release the engine's file and reader threads (the RAM tier
+        holds none)."""
+        close = getattr(self.backend, "close", None)
+        if close is not None:
+            close()
 
     def __enter__(self) -> "Database":
         return self
@@ -357,13 +429,30 @@ class Database:
                 f"{op} needs the {cap!r} capability, which the "
                 f"{self.caps.tier!r} tier of this database lacks")
 
-    # ------------------------------------------------ not in the port yet
-    def save(self) -> None:
-        _not_ported("save", "ROADMAP queue 1, item 'Disk tier'")
+    # ---------------------------------------------------------------- I/O
+    def io_stats(self, reset: bool = False):
+        """The typed I/O record (``repro_torch.store.cache.IoStats``), one
+        shape on every tier: cache counters plus the async pipeline's
+        speculation counters; all-zero on the RAM tier.  ``reset=True``
+        returns the snapshot and then cold-starts the I/O path (counters
+        and cache dropped, structural pins re-established)."""
+        return self.backend.io_stats(reset=reset)
 
+    def reset_io(self) -> None:
+        """Deprecated: use ``io_stats(reset=True)``."""
+        warnings.warn("Database.reset_io() is deprecated; use "
+                      "db.io_stats(reset=True)", DeprecationWarning,
+                      stacklevel=2)
+        self.backend.io_stats(reset=True)
+
+    @property
+    def cache_stats(self):
+        """Deprecated: use ``io_stats()`` (same leading five fields)."""
+        warnings.warn("Database.cache_stats is deprecated; use "
+                      "db.io_stats()", DeprecationWarning, stacklevel=2)
+        return self.backend.cache_stats
+
+    # ------------------------------------------------ not in the port yet
     def ingest_queue(self, batch_size: Optional[int] = None):
         _not_ported("ingest_queue", "ROADMAP queue 1, item 'tiered/ and "
                                     "ingest/'")
-
-    def io_stats(self, reset: bool = False):
-        _not_ported("io_stats", "ROADMAP queue 1, item 'Disk tier'")

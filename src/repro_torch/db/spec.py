@@ -3,13 +3,16 @@
 Port of ``repro/db/spec.py``.  ``IndexSpec`` keeps the reference's
 fields and validation, so one spec reads the same in both packages.
 The port serves the RAM tier in every mode (``catapult``, ``diskann``,
-``lsh_apg``), at full precision or with PQ traversal (``pq=M``),
-filtered (``filters=True``) or not, with the adapt layer
-(``adapt=PolicyConfig(...)``, catapult mode) or without; a spec asking
+``lsh_apg``) and the single-store disk tier (``tier="disk"``, a CTPL
+block file at ``path``, its I/O engine configured by ``io=IoSpec()``)
+in ``catapult`` and ``diskann`` modes; at full precision or with PQ
+traversal (``pq=M``; the disk tier always traverses PQ), filtered
+(``filters=True``) or not, with the adapt layer
+(``adapt=PolicyConfig(...)``, catapult mode) or without.  A spec asking
 for anything else raises ``CapabilityError`` naming, by title, the
-ROADMAP item that will bring it.  ``io``/``ingest``/``tiered`` keep
-their places but only take ``None`` for now (their spec types come
-with their tiers).
+ROADMAP item that will bring it.  ``ingest``/``tiered`` keep their
+places but only take ``None`` for now (their spec types come with their
+tiers).
 """
 from __future__ import annotations
 
@@ -25,10 +28,66 @@ from repro_torch.core.vamana import VamanaParams
 TIERS = ("ram", "disk", "sharded", "tiered")
 MODES = ("catapult", "diskann", "lsh_apg")
 HOP_BACKENDS = ("unfused", "fused")
+ADMISSION_POLICIES = ("clock", "locality")
 
 
 class CapabilityError(RuntimeError):
     """Operation not supported by this tier (see ``Database.caps``)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class IoSpec:
+    """Disk-tier I/O engine configuration (``IndexSpec.io``).
+
+    ``pipeline=False`` (the default) is the synchronous engine: demand
+    fetches on the search path, nothing speculative.  ``pipeline=True``
+    turns on the async submission/completion engine
+    (``repro_torch.store.pipeline``): ``workers`` reader threads overlap
+    speculative block reads with rerank/route compute, prefetching the
+    beam frontier's neighborhoods (the adjacency of each lane's top
+    ``prefetch_depth`` beam nodes) under a bounded ``queue_depth`` of
+    outstanding reads, with in-flight dedup and cancellation of
+    mispredicted prefetches.
+
+    ``admission`` picks the cache-admission policy: ``'clock'`` is pure
+    recency; ``'locality'`` grants frequently re-demanded nodes extra
+    CLOCK lives and admits speculative blocks unreferenced.  Both
+    compose with catapult-destination pinning.
+
+    The spec persists next to the index (``<store>.io.json``), so a
+    plain ``open(path)`` resumes the engine the index was tuned with; an
+    explicit ``spec.io`` at ``open()`` overrides the persisted one.
+
+    Search results are unaffected either way: ids/dists are bit-identical
+    with the pipeline on or off — only wall-clock and I/O accounting move.
+    """
+    pipeline: bool = False
+    workers: int = 2
+    prefetch_depth: int = 4      # beam-frontier nodes speculated per lane
+    queue_depth: int = 256       # max outstanding speculative reads
+    admission: str = "clock"
+
+    def __post_init__(self) -> None:
+        if self.workers < 1:
+            raise ValueError(f"io.workers must be >= 1, got {self.workers}")
+        if self.prefetch_depth < 1:
+            raise ValueError(f"io.prefetch_depth must be >= 1, "
+                             f"got {self.prefetch_depth}")
+        if self.queue_depth < 1:
+            raise ValueError(f"io.queue_depth must be >= 1, "
+                             f"got {self.queue_depth}")
+        if self.admission not in ADMISSION_POLICIES:
+            raise ValueError(f"io.admission must be one of "
+                             f"{ADMISSION_POLICIES}, "
+                             f"got {self.admission!r}")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "IoSpec":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
 
 
 class Caps(NamedTuple):
@@ -43,11 +102,9 @@ class Caps(NamedTuple):
 
 # what the port lacks -> the ROADMAP queue 1 item (by title) that brings it
 _NOT_PORTED = {
-    "tier": "ROADMAP queue 1, items 'Disk tier', 'Sharded tier' and "
-            "'tiered/ and ingest/'",
-    "io": "ROADMAP queue 1, item 'Disk tier'",
-    "ingest": "ROADMAP queue 1, item 'tiered/ and ingest/'",
+    "sharded": "ROADMAP queue 1, item 'Sharded tier'",
     "tiered": "ROADMAP queue 1, item 'tiered/ and ingest/'",
+    "ingest": "ROADMAP queue 1, item 'tiered/ and ingest/'",
 }
 
 
@@ -84,7 +141,7 @@ class IndexSpec:
     cache_frames: int = 2048
     n_shards: int = 2
     tiered: Optional[object] = None
-    io: Optional[object] = None
+    io: Optional[IoSpec] = None
     ingest: Optional[object] = None
     hop_backend: str = "unfused"
     # serving defaults (overridable per SearchRequest)
@@ -114,14 +171,18 @@ class IndexSpec:
             raise ValueError(f"need >= 1 shard, got {self.n_shards}")
         if self.adapt is not None and self.mode != "catapult":
             raise ValueError("adapt policy needs mode='catapult'")
+        if self.io is not None and not isinstance(self.io, IoSpec):
+            raise ValueError(f"io must be an IoSpec (or None for the "
+                             f"synchronous default), got {type(self.io)}")
         if self.hop_backend not in HOP_BACKENDS:
             raise ValueError(f"hop_backend must be one of {HOP_BACKENDS}, "
                              f"got {self.hop_backend!r}")
-        asked = {"tier": self.tier != "ram", "io": self.io is not None,
-                 "ingest": self.ingest is not None,
-                 "tiered": self.tiered is not None}
-        for name, on in asked.items():
-            if on:
+        if self.tier in ("sharded", "tiered"):
+            raise CapabilityError(
+                f"IndexSpec.tier={self.tier!r} is not ported to repro_torch "
+                f"yet: {_NOT_PORTED[self.tier]}")
+        for name in ("ingest", "tiered"):
+            if getattr(self, name) is not None:
                 raise CapabilityError(
                     f"IndexSpec.{name}={getattr(self, name)!r} is not ported "
                     f"to repro_torch yet: {_NOT_PORTED[name]}")

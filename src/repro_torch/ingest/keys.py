@@ -5,14 +5,35 @@ A copy of ``repro/ingest/keys.py``'s ``KeyMap`` (numpy only).  Callers
 name rows with their own stable keys (ints or strings, one kind per
 database) and never learn graph ids.  True-upsert semantics live one
 level up in ``Database.upsert``: when a key already maps to a gid, the
-new row is inserted first and the old gid tombstoned after.  The npz
-sidecars that persist the map come with the disk tier.
+new row is inserted first and the old gid tombstoned after.
+
+Persistence is one npz per database (single store: ``<store>.keys.npz``
+beside the block file), in the reference's schema.  The reference's npz
+also carries its bootstrap external-id indirection (``ext2int``) when a
+database was born empty; the port neither writes nor opens that yet.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
+
+
+def ingest_state_path(tier: str, path: str) -> str:
+    """Where the ingest-state npz lives for a persisted database."""
+    if tier == "disk":
+        return path + ".keys.npz"
+    return os.path.join(path, "keys.npz")
+
+
+def ingest_spec_path(tier: str, path: str) -> str:
+    """Where the IngestSpec json sidecar lives (single-file tiers and
+    the tiered directory; the sharded tier persists it in its manifest
+    instead)."""
+    if tier == "disk":
+        return path + ".ingest.json"
+    return os.path.join(path, "ingest.json")
 
 
 class KeyMap:
@@ -109,3 +130,20 @@ class KeyMap:
         cast = int if kind == "int" else str
         m._fwd = {cast(v): int(g) for v, g in zip(values, gids)}
         return m
+
+
+def write_ingest_state(npz_path: str, keymap: Optional[KeyMap]) -> None:
+    """One atomic-ish npz holding the keymap, in the reference's schema."""
+    arrays = (keymap or KeyMap()).to_arrays()
+    tmp = npz_path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **arrays)
+    os.replace(tmp, npz_path)
+
+
+def read_ingest_state(npz_path: str) -> Optional[dict]:
+    """The persisted arrays, or None when no ingest state exists."""
+    if not os.path.exists(npz_path):
+        return None
+    with np.load(npz_path, allow_pickle=False) as z:
+        return {name: z[name] for name in z.files}

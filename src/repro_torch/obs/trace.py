@@ -1,7 +1,10 @@
 """Per-query trace spans + the ``explain`` search mode's return type.
 
 A copy of ``repro/obs/trace.py`` (pure Python; the port imports nothing
-of the reference package).  The RAM tier records ``route`` only.
+of the reference package).  The RAM tier records ``route`` and, with
+PQ, ``rerank``; the disk tier ``route``, ``fetch``, ``speculate`` (with
+the I/O pipeline on) and ``rerank``, and fills ``blocks_read`` /
+``cache_hits`` from its ``SearchStats``.
 
 A ``TraceRecorder`` is a host-side collector threaded through one
 search call (``engine.search(..., trace=rec)``): each engine tier times
@@ -12,6 +15,8 @@ its lifecycle stages into it —
                 synced so the wall time is honest,
 * ``fetch``   — the disk tiers' batched deduplicated block fetch
                 through the CLOCK cache,
+* ``speculate`` — the disk tier's queueing of next round's likely
+                blocks on the I/O pipeline,
 * ``rerank``  — full-precision rerank (host-side from fetched blocks on
                 disk, device PQ rerank on RAM),
 * ``merge``   — the sharded tier's rebase + global top-k merge,
@@ -110,6 +115,8 @@ class SearchTrace:
     catapult_used: int            # lanes whose bucket supplied a start
     catapult_won: int             # lanes whose catapult start beat fallback
     hops: np.ndarray              # (B,)
+    blocks_read: Optional[np.ndarray]    # (B,) — disk tiers only
+    cache_hits: Optional[np.ndarray]     # (B,)
     stages: list[Span]
     shards: list[dict]            # per-shard {"name", "stages": [Span...]}
     total_ms: float
@@ -127,6 +134,8 @@ class SearchTrace:
             "catapult_used": self.catapult_used,
             "catapult_won": self.catapult_won,
             "hops_mean": float(np.mean(self.hops)),
+            "blocks_read_mean": (None if self.blocks_read is None
+                                 else float(np.mean(self.blocks_read))),
             "stages_ms": {s.name: round(self.stage_ms(s.name), 4)
                           for s in self.stages},
             "shards": [{"name": sh["name"],
@@ -157,6 +166,10 @@ def build_search_trace(*, ids, dists, stats, tier: str, mode: str, k: int,
         entry=entry, catapult_used=int(used.sum()),
         catapult_won=int(won.sum()),
         hops=np.asarray(stats.hops),
+        blocks_read=(None if stats.block_reads is None
+                     else np.asarray(stats.block_reads)),
+        cache_hits=(None if stats.cache_hits is None
+                    else np.asarray(stats.cache_hits)),
         stages=list(recorder.spans),
         shards=[{"name": c.name, "stages": list(c.spans)}
                 for c in recorder.children],

@@ -116,7 +116,13 @@ class VectorSearchFrontend:
         stats = SearchStats(hops=np.asarray(stats.hops)[:real],
                             ndists=np.asarray(stats.ndists)[:real],
                             used=np.asarray(stats.used)[:real],
-                            won=np.asarray(stats.won)[:real])
+                            won=np.asarray(stats.won)[:real],
+                            block_reads=(None if stats.block_reads is None
+                                         else np.asarray(
+                                             stats.block_reads)[:real]),
+                            cache_hits=(None if stats.cache_hits is None
+                                        else np.asarray(
+                                            stats.cache_hits)[:real]))
         return np.asarray(ids[:real]), np.asarray(dists[:real]), stats
 
     def flush(self) -> dict[int, tuple[np.ndarray, np.ndarray]]:

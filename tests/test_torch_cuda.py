@@ -633,3 +633,142 @@ def test_gated_off_engine_on_the_card_runs_diskann(dev):
     fe.search(qs)
     state = cat.backend.adapt_state
     assert state.recent.device.type == "cuda" and int(state.n_queries) > 0
+
+
+def _disk_twins(tmp_path, dev, vec, labels=None, prebuilt=None, **spec):
+    """A disk database created on the card and a CPU twin that opens a
+    copy of its block file (so both traverse with one codebook)."""
+    import shutil
+    from repro_torch import db
+    path = str(tmp_path / "card.ctpl")
+    card = db.create(db.IndexSpec(tier="disk", path=path, degree=16,
+                                  build_beam=32, filters=labels is not None,
+                                  **spec), vec, labels, prebuilt=prebuilt,
+                     device=dev)
+    for ext in ("", ".io.json"):
+        shutil.copyfile(path + ext, str(tmp_path / "cpu.ctpl") + ext)
+    cpu = db.open(str(tmp_path / "cpu.ctpl"), mode=spec.get("mode"),
+                  spec=db.IndexSpec(**spec), device="cpu")
+    return card, cpu
+
+
+@pytest.mark.parametrize("mode,hop_backend,filtered", [
+    ("catapult", "unfused", False), ("catapult", "fused", False),
+    ("diskann", "unfused", False), ("catapult", "unfused", True)])
+def test_disk_database_on_the_card_matches_the_cpu(dev, tmp_path, mode,
+                                                   hop_backend, filtered):
+    """A disk database on the card against its CPU twin over a copy of its
+    file: over two replayed rounds, ids, distances, hops, block reads and
+    cache hits are equal, and per search the PQ traversal's kernels run
+    with no ``gather_distance`` launch (the rerank is on the host)."""
+    from repro_torch.core.filters import build_stitched_graph
+    from repro_torch.core.vamana import VamanaParams, build_vamana
+    vec, labels, qs, fl = _labeled_corpus(31)
+    params = VamanaParams(max_degree=16, build_beam=32)
+    if filtered:
+        graph = build_stitched_graph(vec, labels, 4, params, device=dev)
+    else:
+        graph = build_vamana(vec, params, device=dev)
+        labels = fl = None
+    card, cpu = _disk_twins(tmp_path, dev, vec, labels, graph, mode=mode,
+                            hop_backend=hop_backend)
+    try:
+        assert card.backend.device.type == "cuda"
+        got = {}
+        for name, d in (("cuda", card), ("cpu", cpu)):
+            got[name] = []
+            for rnd in range(2):
+                for k in ops.LAUNCHES:
+                    ops.LAUNCHES[k] = 0
+                r = d.search(qs, k=10, filter_labels=fl)
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES["gather_distance"] == 0
+                if name == "cuda":
+                    assert sum(ops.LAUNCHES.values()) > 0
+                got[name].append(r)
+        for rnd, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
+            np.testing.assert_array_equal(a.ids, b.ids, f"round {rnd}")
+            assert a.dists.tobytes() == b.dists.tobytes(), rnd
+            for fld in ("hops", "block_reads", "cache_hits"):
+                np.testing.assert_array_equal(
+                    getattr(a.stats, fld), getattr(b.stats, fld),
+                    f"{fld}, round {rnd}")
+    finally:
+        card.close()
+        cpu.close()
+
+
+def test_disk_engine_leaves_the_vector_table_off_the_card(dev, tmp_path):
+    """The disk engine's device memory holds adjacency, codes and
+    tombstones, not the (n, d) vector table — after create, an upsert
+    and a reopen; the vector table on the card is the (1, d) dummy."""
+    from repro_torch import db
+    from repro_torch.core.vamana import _random_regular_init
+    rng = np.random.default_rng(37)
+    n, d = 20000, 256
+    vec = rng.normal(size=(n, d)).astype(np.float32)
+    graph = (_random_regular_init(n, 16, rng), 0)
+    path = str(tmp_path / "m.ctpl")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    card = db.create(db.IndexSpec(tier="disk", path=path, degree=16,
+                                  spare_capacity=64), vec, prebuilt=graph,
+                     device=dev)
+    try:
+        held = torch.cuda.memory_allocated() - base
+        assert held < vec.nbytes / 4, (held, vec.nbytes)
+        assert tuple(card.backend._vec.shape) == (1, d)
+        card.upsert(vec[:32] + 0.1)
+        assert torch.cuda.memory_allocated() - base < vec.nbytes / 4
+        assert tuple(card.backend._vec.shape) == (1, d)
+        card.save()
+    finally:
+        card.close()
+    before = torch.cuda.memory_allocated()
+    back = db.open(path, device=dev)
+    try:
+        assert torch.cuda.memory_allocated() - before < vec.nbytes / 4
+        assert tuple(back.backend._vec.shape) == (1, d)
+        back.search(vec[:16], k=5)
+    finally:
+        back.close()
+
+
+def test_disk_serve_on_the_card_matches_the_cpu(dev, tmp_path):
+    """``serve()`` with the maintainer on disk twins: after every flush the
+    card twin's maintainer events, bucket tables and cache pins equal
+    the CPU twin's."""
+    from repro_torch.adapt import PolicyConfig
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.vamana import VamanaParams, build_vamana
+    vec, _, qs, _ = _labeled_corpus(41)
+    graph = build_vamana(vec, VamanaParams(max_degree=16, build_beam=32),
+                         device=dev)
+    policy = PolicyConfig(observe_every=1, baseline_every=3, min_batches=2,
+                          min_base=1, ttl_steps=96)
+    card, cpu = _disk_twins(tmp_path, dev, vec, prebuilt=graph,
+                            adapt=policy, adapt_tick_every=2,
+                            cache_frames=64)
+    try:
+        fes = [card.serve(max_batch=8), cpu.serve(max_batch=8)]
+        rng = np.random.default_rng(5)
+        events = ("ticks", "ttl_evicted", "flushed_entries", "drift_flushes",
+                  "gate_transitions", "shadows", "probes")
+        for _ in range(8):
+            rows = rng.integers(0, qs.shape[0], 13)
+            for fe in fes:
+                for x in qs[rows]:
+                    fe.submit(x)
+                fe.flush()
+            s = [fe.maintainer.snapshot() for fe in fes]
+            assert {k: s[0][k] for k in events} == {k: s[1][k] for k in events}
+            a, b = (bk.to_arrays(d.backend._cat.buckets) for d in (card, cpu))
+            for name in ("ids", "stamp"):
+                np.testing.assert_array_equal(a[name], b[name])
+            ca, cb = card.backend.cache, cpu.backend.cache
+            np.testing.assert_array_equal(ca.pinned, cb.pinned)
+            assert list(ca._rotating) == list(cb._rotating)
+        assert s[0]["ticks"] > 0
+    finally:
+        card.close()
+        cpu.close()

@@ -225,16 +225,18 @@ def test_public_constructors_default_to_the_card(build):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("tier", "disk"), ("pq", 4), ("adapt", object()), ("io", object()),
+    ("tier", "sharded"), ("pq", 4), ("adapt", object()), ("tier", "tiered"),
     ("ingest", object()), ("tiered", object())])
 def test_unported_spec_fields_raise_capability_error(field, value):
     """Every field this port lacks raises; ``pq`` and ``adapt`` are ported
-    on the RAM tier and raise only with a tier that is not (through
-    ``tier``)."""
+    on the RAM and disk tiers and raise only with a tier that is not
+    (through ``tier``)."""
     kw = {field: value}
     if field in ("pq", "adapt"):
         assert getattr(tdb.IndexSpec(**kw), field) is value
-        kw.update(tier="disk", path="unused.ctpl")
+        assert getattr(tdb.IndexSpec(tier="disk", path="unused.ctpl", **kw),
+                       field) is value
+        kw.update(tier="sharded", path="unused.ctpl")
     if field == "tier":
         kw["path"] = "unused.ctpl"
     with pytest.raises(tdb.CapabilityError, match="ROADMAP") as err:
@@ -275,9 +277,10 @@ def test_explain_metrics_and_request_spelling(corpus, queries, graph):
     assert port.warm((4,)) >= 0
 
 
-@pytest.mark.parametrize("op", ["save", "serve", "io_stats"])
+@pytest.mark.parametrize("op", ["ingest_queue", "serve"])
 def test_unported_database_methods_raise(corpus, graph, op):
-    """``serve`` is ported; its ``ingest=`` pump is not."""
+    """``serve`` is ported; its ``ingest=`` pump is not, nor is the
+    ingest queue."""
     port = tdb.create(tdb.IndexSpec(mode="diskann", **SPEC), corpus[0],
                       prebuilt=graph, device="cpu")
     kw = {"ingest": True} if op == "serve" else {}
