@@ -38,11 +38,12 @@ then:
    over copies of the card twins' files, a pipelined twin, save /
    ``sniff`` / reopen, and mutations whose card and CPU block files must
    end byte-identical;
-3. filtered search: ``make_papers()`` (20,000 x 24, 16 labels, 2,048
-   queries, each with its own label), one ``build_stitched_graph`` on
-   the card, then the four twins with ``IndexSpec(filters=True)``, at
-   full precision and with ``pq=8``: every id and every catapult start on
-   its lane's label;
+3. filtered search: ``make_papers(n=10,000)`` (10,000 x 24, 16 labels,
+   2,048 queries, each with its own label; its default 20,000 rows are
+   cut to keep the run inside its time limit), one
+   ``build_stitched_graph`` on the card, then the four twins with
+   ``IndexSpec(filters=True)``, at full precision and with ``pq=8``:
+   every id and every catapult start on its lane's label;
 4. adaptation: ``make_shifted_zipf(kind="sudden")`` (20,000 x 24, its
    graph built on the CPU by a second process while the card phases
    run) served through ``db.serve(max_batch=64)`` with the maintainer
@@ -62,7 +63,24 @@ then:
    disk tier at 1M rows (a 3.58 GB store, 62,500 cache frames): catapult,
    fused and diskann twins, 4 explained batches of 4,096 each (block
    reads, hit rate, route / fetch / rerank time, idle share), the
-   engine's device memory, and a reopen.
+   engine's device memory, and a reopen; then the tiered tier over that
+   store (renamed into a tiered directory, hot capacity 1,024, served 4
+   batches with the ``TieredMaintainer``) and the mesh search (4 RAM
+   shards, 8 virtual devices, 4 steps of 4,096);
+6. in a second process on the card beside phases 2 to 5: the sharded,
+   mesh and tiered tiers at the reference benches' size
+   (``make_medrag_zipf(n=8,000)``): ``IndexSpec(tier=
+   "sharded", pq=8)`` at S = 2 and 4 with diskann, fused and CPU twins,
+   save / ``sniff`` / reopen and mutations (card and CPU shard files
+   byte-identical); ``build_sharded_state`` and three mesh steps on the
+   card and the CPU (equal ids and bucket tables); ``IndexSpec(tier=
+   "tiered")`` replaying ``bench_substrates.run_tiered`` with a frozen-
+   hot-set twin, a pure-disk control and a CPU twin (equal rebalances;
+   adaptive cold reads below the frozen twin's), once more over a
+   sharded cold tier, and save / reopen; then the sharded tier at 1M x
+   768 (4 shards of 250,000 rows over random regular graphs, catapult
+   and diskann twins: scatter, merge and per-shard stage times, block
+   reads, idle share, device bytes).
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
@@ -72,7 +90,10 @@ masked search stays on the composed hop, insert searches and builds
 launch ``gather_distance`` alone, deletes and consolidates launch
 nothing, a maintainer's telemetry fold launches one ``lsh_hash`` and
 its shadow and gated-off batches run the diskann path; a disk search
-launches no ``gather_distance``, its rerank being on the host).
+launches no ``gather_distance``, its rerank being on the host; a
+sharded or tiered search launches, shard by shard and tier by tier,
+what ``PathSpy`` records; the mesh search each virtual device's
+catapult RAM step).
 Any failed check exits non-zero.  Prints the
 card's name and power limit first, a ``{"kernels": [...]}`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -109,7 +130,8 @@ PQ_M_WIDE = 96                 # a 96 KB LUT a lane, beyond 48 KB of shared
 LSH_TRIP = (256, 24, 8)        # the main path's lsh_hash: B, d, L
 PHASE1_ITERS = 8               # search_two_phase's default phase-1 budget
 N_LABELS = 16                  # make_papers' categories, also at 1M rows
-DEPLOY_UPSERT = 64             # rows upserted at 1M x 768 (host-bound)
+PAPERS_N = 10_000              # the filtered phase's corpus (default 20,000)
+DEPLOY_UPSERT = 32             # rows upserted at 1M x 768 (host-bound)
 SPIN_CYCLES = 2 ** 25          # ~17 ms at 1.98 GHz, before each timed run
 SERVE_BATCH = 64               # the adapt phase's frontend batch
 # the reference bench's (benchmarks/bench_adapt.py) shift policy: the
@@ -126,6 +148,21 @@ DISK_TWINS = (("catapult", "catapult", "unfused"),
               ("diskann", "diskann", "unfused"))
 DISK_UPSERT = 256              # keyed rows upserted into the tripclick store
 DISK_REOPEN_LANES = 1024       # the 1M reopen check's publish=False batch
+# the sharded and tiered phases replay the reference benches' workload,
+# make_medrag_zipf(n=8,000, n_queries=2,048): bench_disk.run_sharded's
+# k, beam, batch and frame budget (split over the shards) ...
+BENCH_N, BENCH_Q = 8_000, 2_048
+SHARD_K, SHARD_BEAM, SHARD_BATCH = 8, 16, 256
+SHARD_FRAMES = 500             # max(256, n // 16) in total
+SHARD_SPARE = 256              # the S=2 twin's spare rows, for mutations
+MESH = (2, 4)                  # (data, model): D = 8 virtual devices
+# ... and bench_substrates.run_tiered's
+TIER_K, TIER_BATCH = 4, 128
+TIER_FRAMES = 333              # max(128, n // 24)
+TIER_POLICY = dict(observe_every=1, baseline_every=8, min_batches=4)
+TIER_TICK = 2
+DEPLOY_SHARDS = 4              # 250,000 rows a shard at 1M x 768
+DEPLOY_HOT = 1024              # the 1M tiered layout's hot_capacity
 
 
 class SmokeFailure(RuntimeError):
@@ -802,9 +839,9 @@ def two_phase_launches(mode: str, hop_backend: str, hops,
 
 
 def replay(database, queries, batch=256, passes=2, filter_labels=None,
-           two_phase=False):
+           two_phase=False, k=10, beam_width=None):
     """Replay the queries in order, ``passes`` times; per-pass results
-    (with ``block_reads`` and ``cache_hits`` on the disk tier).
+    (with ``block_reads`` and ``cache_hits`` on the disk tiers).
     ``two_phase`` replays through ``search_two_phase`` (phase 1 of
     ``PHASE1_ITERS`` iterations) instead of ``Database.search``."""
     res = []
@@ -819,7 +856,8 @@ def replay(database, queries, batch=256, passes=2, filter_labels=None,
                     q, k=10, phase1_iters=PHASE1_ITERS)
             else:
                 got, _, st = database.search(
-                    q, k=10, filter_labels=None if filter_labels is None
+                    q, k=k, beam_width=beam_width,
+                    filter_labels=None if filter_labels is None
                     else filter_labels[lo: lo + batch])
             ms.append((time.perf_counter() - t0) * 1e3)
             ids.append(got)
@@ -1277,7 +1315,7 @@ def disk_mutations(wl, graph, spec, regimes, paths, opened, tmp) -> dict:
     return out
 
 
-def deploy_disk(vec_np, graph, queries, paths, dev) -> dict:
+def deploy_disk(vec_np, graph, queries, paths, dev, tmp) -> dict:
     """1,000,000 x 768 on the disk tier: ``IndexSpec(tier="disk", pq=8)``
     writes 1,000,000 blocks of 3,584 B; cache frames corpus/16 = 62,500
     (bench_disk's warm regime); the disk engine's default beam
@@ -1289,11 +1327,11 @@ def deploy_disk(vec_np, graph, queries, paths, dev) -> dict:
     device memory after ``create`` and after ``open`` must stay well
     under the vector table's; ``gather_distance`` never launches; the
     catapult database, saved with its maintainer attached and reopened,
-    returns the live ids with ``publish=False``."""
+    returns the live ids with ``publish=False``.  The store stays in
+    ``tmp`` (the caller's) for the tiered phase."""
     from repro_torch import db
     from repro_torch.store.layout import HEADER_SIZE, block_size_for
     out, dbs = {}, {}
-    tmp = tempfile.mkdtemp(prefix="deploy_disk_")
     n = N
     store_bytes = HEADER_SIZE + n * block_size_for(D, 64)
     free = shutil.disk_usage(tmp).free
@@ -1410,23 +1448,968 @@ def deploy_disk(vec_np, graph, queries, paths, dev) -> dict:
     finally:
         for d in dbs.values():
             d.close()
-        shutil.rmtree(tmp, ignore_errors=True)
     out["rows"] = n
     print("deployment disk: " + str({k: v for k, v in out.items()
                                      if k not in dbs}), flush=True)
     return out
 
 
+def add_launches(total: dict, more: dict) -> dict:
+    for name, n in more.items():
+        total[name] = total.get(name, 0) + n
+    return total
+
+
+def launches_of(fn):
+    """(``fn()``, the kernel launches made during it), without setting
+    the counts to 0 (for a part of a path that ``counted`` reads)."""
+    from repro_torch.kernels import ops
+    before = dict(ops.LAUNCHES)
+    out = fn()
+    return out, {k: ops.LAUNCHES[k] - before[k] for k in before}
+
+
+class PathSpy:
+    """Records, search by search, what each catapult unit (a disk engine:
+    a sharded database's shards, a tiered database's cold units) ran —
+    its dispatch path and loop iterations (the largest ``hops`` of the
+    batch) — and what a tiered engine's hot RAM tier ran, and counts the
+    maintainer's telemetry folds (one ``lsh_hash`` each, by wrapping
+    ``adapt.stats.observe_update``).  Unit searches run on the sharded
+    tier's pool threads; a list append is atomic under the interpreter
+    lock.  ``expected(hb)`` is the searches' launches."""
+
+    def __init__(self, units, tiered=None):
+        self.units, self.tiered = list(units), tiered
+        self.cold, self.hot, self.folds = [], [], 0
+
+    def __enter__(self):
+        from repro_torch.adapt import stats as ts
+        self._ts, self._observe = ts, ts.observe_update
+        for unit in self.units:
+            def search(*a, _real=unit.search, _unit=unit, **kw):
+                path = ("catapult" if _unit.mode == "catapult"
+                        and _unit.catapult_active else "diskann")
+                out = _real(*a, **kw)
+                self.cold.append((path, int(out[2].hops.max())))
+                return out
+            unit.search = search
+        if self.tiered is not None:
+            eng, real_hot = self.tiered, self.tiered._search_hot
+
+            def search_hot(*a, **kw):
+                ran = eng.hot is not None and bool(eng._hot_slot)
+                out = real_hot(*a, **kw)
+                if ran:
+                    self.hot.append(int(out[2].hops.max()))
+                return out
+            eng._search_hot = search_hot
+
+        def observe(*a, **kw):
+            self.folds += 1
+            return self._observe(*a, **kw)
+        ts.observe_update = observe
+        return self
+
+    def __exit__(self, *exc):
+        for unit in self.units:
+            del unit.search              # the bound method again
+        if self.tiered is not None:
+            del self.tiered._search_hot
+        self._ts.observe_update = self._observe
+        return False
+
+    def expected(self, hb: str) -> dict:
+        """Cold searches at ``expected_launches(..., pq=True, disk=True)``
+        by their path, hot searches at the RAM diskann formula."""
+        out = expected_launches("diskann", hb, [])
+        for path in ("catapult", "diskann"):
+            add_launches(out, expected_launches(
+                path, hb, [i for p, i in self.cold if p == path], pq=True,
+                disk=True))
+        return add_launches(out, expected_launches("diskann", hb, self.hot))
+
+
+def spy_lookups(fn):
+    """Run ``fn`` with ``core.catapult.catapulted_lookup`` wrapped so that
+    each call's loop iterations are kept (the mesh search's per-device
+    steps go through it)."""
+    from repro_torch.core import catapult as cat_mod
+    real, iters = cat_mod.catapulted_lookup, []
+
+    def spy(*args, **kw):
+        out = real(*args, **kw)
+        iters.append(int(out[1].hops.max()))
+        return out
+
+    cat_mod.catapulted_lookup = spy
+    try:
+        return fn(), iters
+    finally:
+        cat_mod.catapulted_lookup = real
+
+
+def rows_of(gids, offsets, bounds):
+    """Capacity-ranged global ids of a sharded store -> corpus rows (the
+    shard's first row plus the local id); -1 stays -1."""
+    g = np.asarray(gids, np.int64)
+    s = np.clip(np.searchsorted(offsets, g, side="right") - 1, 0,
+                len(bounds) - 2)
+    return np.where(g >= 0, bounds[s] + g - offsets[s], -1)
+
+
+def same_files(a: str, b: str) -> bool:
+    """Every file of two directories (recursively) byte for byte, the
+    ``.npz`` members by name and bytes (a zip stamps write times)."""
+    import zipfile
+    names = sorted(str(p.relative_to(a)) for p in Path(a).rglob("*")
+                   if p.is_file())
+    if names != sorted(str(p.relative_to(b)) for p in Path(b).rglob("*")
+                       if p.is_file()):
+        return False
+    for name in names:
+        x, y = Path(a) / name, Path(b) / name
+        if name.endswith(".npz"):
+            with zipfile.ZipFile(x) as zx, zipfile.ZipFile(y) as zy:
+                if [(m, zx.read(m)) for m in zx.namelist()] != \
+                        [(m, zy.read(m)) for m in zy.namelist()]:
+                    return False
+        elif x.read_bytes() != y.read_bytes():
+            return False
+    return True
+
+
+def phase_sharded(wl, dev) -> dict:
+    """The sharded tier at ``bench_disk.run_sharded``'s settings:
+    ``make_medrag_zipf(n=8,000, n_queries=2,048)``, k=8, beam 16,
+    batches of 256, 500 cache frames in total split over the shards,
+    replayed twice.
+
+    * ``create(IndexSpec(tier="sharded", pq=8, n_shards=S))`` on the card
+      for S = 2 (with 256 spare rows for the mutations) and S = 4 in
+      catapult mode; at S = 4 a diskann twin, a fused twin and a CPU twin
+      each open a copy of the card directory.  Fused and unfused, card
+      and CPU: ids, hops, block reads and cache hits equal.  Recall
+      against brute force; catapult's pass-2 block reads below
+      diskann's.
+    * save / ``sniff`` / ``open``: the first ``publish=False`` batch of
+      the reopened database equals the live one's.
+    * mutations on the S = 2 twin and a CPU twin over a copy: a keyed
+      upsert of the 256 spare rows, a delete of half of them, a
+      consolidate; after every step the two directories' files are
+      byte-identical.
+    * launches: each replay equals, shard search by shard search, the
+      disk formula (``PathSpy``); a build or upsert launches
+      ``gather_distance`` alone; a delete or consolidate nothing."""
+    from repro_torch import db
+    from repro_torch.core.engine import recall_at_k
+    n = wl.corpus.shape[0]
+    truth = brute_force_knn_cuda(wl.corpus, wl.queries, SHARD_K, dev)
+    out, paths, runs, opened, cards = {}, {}, {}, [], {}
+    tmp = tempfile.mkdtemp(prefix="sharded_")
+
+    def spec(s, **kw):
+        return db.IndexSpec(tier="sharded", pq=8, n_shards=s,
+                            cache_frames=SHARD_FRAMES // s, **kw)
+
+    def spied(tag, d, hb):
+        with PathSpy(d.backend.shards) as spy:
+            runs[tag], paths[tag] = counted(lambda: replay(
+                d, wl.queries, k=SHARD_K, beam_width=SHARD_BEAM))
+        want = spy.expected(hb)
+        check(paths[tag] == want and want["gather_distance"] == 0,
+              f"{tag} replay launched {paths[tag]}, its shard searches "
+              f"imply {want}")
+
+    try:
+        for s, spare in ((2, SHARD_SPARE), (4, 0)):
+            tag = f"sharded_s{s}"
+            t0 = time.perf_counter()
+            cards[tag], paths[f"{tag}_create"] = counted(lambda: db.create(
+                spec(s, spare_capacity=spare, path=os.path.join(tmp, tag)),
+                wl.corpus))
+            out[f"{tag}_create_s"] = time.perf_counter() - t0
+            opened.append(cards[tag])
+            built = paths[f"{tag}_create"]
+            check(built["gather_distance"] > 0 and sum(built.values())
+                  == built["gather_distance"],
+                  f"{tag}: the shard builds launched {built}")
+            spied(tag, cards[tag], "unfused")
+        card_dir = cards["sharded_s4"].spec.path
+        for name, mode, hb, where in (("diskann", "diskann", "unfused", dev),
+                                      ("fused", "catapult", "fused", dev),
+                                      ("cpu", "catapult", "unfused", "cpu")):
+            tag = f"sharded_s4_{name}"
+            d = db.open(shutil.copytree(card_dir, os.path.join(tmp, tag)),
+                        mode=mode, spec=db.IndexSpec(
+                            hop_backend=hb, cache_frames=SHARD_FRAMES // 4),
+                        device=where)
+            opened.append(d)
+            if name == "cpu":
+                runs[tag] = replay(d, wl.queries, k=SHARD_K,
+                                   beam_width=SHARD_BEAM)
+            else:
+                spied(tag, d, hb)
+        for twin in ("fused", "cpu"):
+            agree = twin_agreement(runs["sharded_s4"],
+                                   runs[f"sharded_s4_{twin}"])
+            out[f"s4_{twin}_agreement"] = agree
+            check(all(v == 1.0 for v in agree.values()),
+                  f"sharded S=4: the {twin} twin differs from the card's "
+                  f"catapult twin (shares of queries equal: {agree})")
+        offsets2 = cards["sharded_s2"].backend.offsets
+        bounds2 = np.linspace(0, n, 3).astype(np.int64)
+        for tag, passes in runs.items():
+            for i, p in enumerate(passes):
+                ids = (rows_of(p["ids"], offsets2, bounds2)
+                       if tag == "sharded_s2" else p["ids"])
+                out[f"{tag}_pass{i + 1}"] = dict(
+                    disk_pass_stats(p), recall_at_8=recall_at_k(ids, truth))
+        c2, d2 = out["sharded_s4_pass2"], out["sharded_s4_diskann_pass2"]
+        check(c2["block_reads_per_query"] < d2["block_reads_per_query"],
+              f"sharded S=4: catapult's pass-2 block reads a query "
+              f"{c2['block_reads_per_query']} are not below diskann's "
+              f"{d2['block_reads_per_query']}")
+        for tag in ("sharded_s2", "sharded_s4"):
+            check(out[f"{tag}_pass2"]["recall_at_8"] > 0.9,
+                  f"{tag}: pass-2 recall@8 {out[f'{tag}_pass2']}")
+        # where a batch's time goes: one explained publish=False batch
+        tr = cards["sharded_s4"].search(wl.queries[-SHARD_BATCH:],
+                                        k=SHARD_K, beam_width=SHARD_BEAM,
+                                        publish=False, explain=True)
+        out["s4_stages_batch_256"] = dict(
+            total_ms=tr.total_ms,
+            **{f"{st}_ms": tr.stage_ms(st)
+               for st in ("scatter", "merge", "route", "fetch", "rerank")})
+
+        # save, sniff, reopen
+        live = cards["sharded_s4"]
+        live.attach_maintainer()
+        live.save()
+        out["sniff"] = db.sniff(card_dir)
+        check(out["sniff"] == ("sharded", 1), f"sniff gave {out['sniff']}")
+        back = db.open(card_dir, spec=db.IndexSpec(
+            cache_frames=SHARD_FRAMES // 4))
+        opened.append(back)
+        q = wl.queries[-SHARD_BATCH:]
+        want_r = live.search(q, k=SHARD_K, beam_width=SHARD_BEAM,
+                             publish=False)
+        with PathSpy(back.backend.shards) as spy:
+            got, paths["sharded_reopen"] = counted(lambda: back.search(
+                q, k=SHARD_K, beam_width=SHARD_BEAM, publish=False))
+        check(paths["sharded_reopen"] == spy.expected("unfused"),
+              f"the reopened sharded search launched "
+              f"{paths['sharded_reopen']}, not {spy.expected('unfused')}")
+        check(np.array_equal(got.ids, want_r.ids)
+              and got.dists.tobytes() == want_r.dists.tobytes(),
+              "the reopened sharded database's publish=False results "
+              "differ from the live one's")
+        out["mutations"] = sharded_mutations(wl, cards["sharded_s2"], paths,
+                                             opened, tmp)
+    finally:
+        for d in opened:
+            d.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = paths
+    for k, v in out.items():
+        if k != "launches":
+            print(f"sharded {k}: {v}")
+    return out
+
+
+def sharded_mutations(wl, card, paths, opened, tmp) -> dict:
+    """Keyed upsert of the S = 2 twin's ``SHARD_SPARE`` spare rows (routed
+    to the least-loaded shard), delete of half of them by key,
+    consolidate: the card twin and a CPU twin over a copy of its
+    directory end every step with byte-identical files; no dead id is
+    returned."""
+    from repro_torch import db
+    rng = np.random.default_rng(SHARD_SPARE)
+    n = wl.corpus.shape[0]
+    new = (wl.corpus[rng.integers(0, n, SHARD_SPARE)]
+           + 0.25 * rng.normal(size=(SHARD_SPARE, wl.corpus.shape[1]))
+           ).astype(np.float32)
+    keys = list(range(SHARD_SPARE))
+    card.save()            # the CPU twin starts from the card's saved state
+    cpu = db.open(shutil.copytree(card.spec.path,
+                                  os.path.join(tmp, "mut_cpu")),
+                  spec=db.IndexSpec(cache_frames=SHARD_FRAMES // 2),
+                  device="cpu")
+    opened.append(cpu)
+    out = {}
+    half = SHARD_SPARE // 2
+    for name, fn in (("upsert", lambda d: d.upsert(new, keys=keys)),
+                     ("delete", lambda d: d.delete(keys=keys[half:])),
+                     ("consolidate", lambda d: d.consolidate())):
+        t0 = time.perf_counter()
+        got, paths[f"sharded_mutation_{name}"] = counted(lambda: fn(card))
+        out[f"{name}_s"] = time.perf_counter() - t0
+        fn(cpu)
+        n_calls = paths[f"sharded_mutation_{name}"]
+        if name == "upsert":
+            gids = got
+            check(n_calls["gather_distance"] > 0
+                  and sum(n_calls.values()) == n_calls["gather_distance"],
+                  f"the sharded upsert's insert searches launched {n_calls}")
+        else:
+            check(not any(n_calls.values()),
+                  f"sharded {name} launched {n_calls}")
+        for d in (card, cpu):
+            d.save()
+        same = same_files(card.spec.path, cpu.spec.path)
+        out[f"{name}_files_identical"] = same
+        check(same, f"sharded mutation {name}: the card twin's files "
+                    f"differ from the CPU twin's")
+    r = card.search(new, k=SHARD_K)
+    out["dead_returned"] = int(np.isin(r.ids, gids[half:]).sum())
+    out["upserted_own_top1"] = float(np.mean(r.ids[:half, 0] == gids[:half]))
+    check(out["dead_returned"] == 0, f"dead ids came back: {out}")
+    return out
+
+
+def phase_mesh(wl, dev) -> dict:
+    """The mesh search at bench size: ``build_sharded_state`` over the
+    medrag corpus with S = 4 shards and D = 8 virtual devices (a (2, 4)
+    mesh), three steps of 512 queries on the card and on the CPU from
+    the same state: ids, every device's bucket table and step equal
+    after each step, recall@8 > 0.9; the build launches
+    ``gather_distance`` alone, each step each virtual device's catapult
+    RAM launches."""
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.beam_search import SearchSpec
+    from repro_torch.core.engine import recall_at_k
+    n = wl.corpus.shape[0]
+    out, paths = {}, {}
+    t0 = time.perf_counter()
+    state, paths["mesh_build"] = counted(lambda: sh.build_sharded_state(
+        wl.corpus, n_shards=MESH[1], n_devices=MESH[0] * MESH[1],
+        device=dev))
+    out["build_s"] = time.perf_counter() - t0
+    built = paths["mesh_build"]
+    check(built["gather_distance"] > 0
+          and sum(built.values()) == built["gather_distance"],
+          f"the mesh build launched {built}")
+    cpu = sh.ShardedEngineState(*[t.cpu() for t in state])
+    spec = SearchSpec(beam_width=SHARD_BEAM, k=SHARD_K,
+                      max_iters=4 * SHARD_BEAM + 64)
+    step = sh.make_sharded_search(MESH, spec, n // MESH[1], 8)
+    nq = min(512, wl.queries.shape[0] // 6 * 2)   # even: 2 query blocks
+    batches = [wl.queries[i * nq: (i + 1) * nq] for i in range(3)]
+    tables = ("bucket_ids", "bucket_stamp", "bucket_step")
+    ids, ms = [], []
+
+    def run_card():
+        nonlocal state
+        after = []
+        for q in batches:
+            t0 = time.perf_counter()
+            state, got, _ = step(state, torch.as_tensor(q, device=dev))
+            ids.append(got.cpu().numpy())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            after.append({name: getattr(state, name).cpu().numpy()
+                          for name in tables})
+        return after
+
+    (card_states, iters), paths["mesh"] = counted(
+        lambda: spy_lookups(run_card))
+    want = expected_launches("catapult", "unfused", iters)
+    check(paths["mesh"] == want and len(iters) == 3 * MESH[0] * MESH[1],
+          f"the mesh steps launched {paths['mesh']}, their "
+          f"{len(iters)} device steps imply {want}")
+    for i, q in enumerate(batches):
+        cpu, got, _ = step(cpu, torch.as_tensor(q))
+        check(np.array_equal(got.numpy(), ids[i]),
+              f"mesh step {i}: the CPU ids differ from the card's")
+        for name, arr in card_states[i].items():
+            check(np.array_equal(getattr(cpu, name).numpy(), arr),
+                  f"mesh step {i}: the CPU {name} differs from the card's")
+    truth = brute_force_knn_cuda(wl.corpus, np.concatenate(batches),
+                                 SHARD_K, dev)
+    out.update(step_ms=ms, loop_iterations=iters,
+               recall_at_8=recall_at_k(np.concatenate(ids), truth),
+               published=int(state.bucket_step.sum()))
+    check(out["recall_at_8"] > 0.9, f"mesh recall@8 {out['recall_at_8']}")
+    out["launches"] = paths
+    print(f"mesh: {out}", flush=True)
+    return out
+
+
+def tiered_replay(d, q, maint=None, ticks=None, corpus=None):
+    """``bench_substrates._replay``: batches of 128 at beam max(2k, 8) = 8,
+    the maintainer observing every batch and ticking every 2; each
+    tick's launches and the hot set after it go to ``ticks``.  With
+    ``corpus``, every returned id's distance must be its corpus row's
+    (ids are stable across rebalances).  Returns per-batch ms."""
+    beam = max(2 * TIER_K, 8)
+    ms = []
+    for i in range(q.shape[0] // TIER_BATCH):
+        qs = q[i * TIER_BATCH: (i + 1) * TIER_BATCH]
+        t0 = time.perf_counter()
+        ids, dists, st = d.search(qs, k=TIER_K, beam_width=beam)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if corpus is not None:
+            true = ((corpus[np.maximum(ids, 0)] - qs[:, None]) ** 2).sum(-1)
+            check(np.allclose(np.where(ids >= 0, dists, 0),
+                              np.where(ids >= 0, true, 0), rtol=1e-4,
+                              atol=1e-4),
+                  "a tiered id came back with another row's distance")
+        if maint is not None:
+            def fold():
+                maint.observe(qs, st, np.ones(qs.shape[0], bool))
+                if (i + 1) % TIER_TICK == 0:
+                    maint.tick()
+                    eng = d.backend
+                    ticks.append(dict(hot=eng._hot_live_gids(),
+                                      stats=eng.tier_stats()))
+            _, n = launches_of(fold)
+            if (i + 1) % TIER_TICK == 0:
+                ticks[-1]["launches"] = n
+            else:
+                ticks.append(dict(launches=n))
+    return ms
+
+
+def tiered_measured(d, q, truth, scan) -> dict:
+    """``bench_substrates._measured``: each batch of 128 preceded by an
+    untimed scan batch; p50 µs a query, cold block reads a query,
+    recall@4."""
+    from repro_torch.core.engine import recall_at_k
+    beam = max(2 * TIER_K, 8)
+    ids_all, times, reads = [], [], 0
+    for i in range(q.shape[0] // TIER_BATCH):
+        d.search(scan, k=TIER_K, beam_width=beam)
+        qs = q[i * TIER_BATCH: (i + 1) * TIER_BATCH]
+        r0 = d.io_stats().block_reads
+        t0 = time.perf_counter()
+        ids, _, _ = d.search(qs, k=TIER_K, beam_width=beam)
+        times.append(time.perf_counter() - t0)
+        reads += d.io_stats().block_reads - r0
+        ids_all.append(ids)
+    ids = np.concatenate(ids_all)
+    return dict(p50_us_per_query=float(np.percentile(times, 50))
+                / TIER_BATCH * 1e6,
+                block_reads_per_query=reads / ids.shape[0],
+                recall_at_4=recall_at_k(ids, truth))
+
+
+def check_tiered_launches(tag, spy, hb, total, ticks) -> dict:
+    """A tiered run's launches: its searches as ``PathSpy`` implies, the
+    maintainer's folds one ``lsh_hash`` each, and its ticks' hot inserts
+    and rebuilds ``gather_distance`` alone."""
+    maint = {}
+    for t in ticks:
+        add_launches(maint, t["launches"])
+    check(maint.get("lsh_hash", 0) == spy.folds
+          and all(v == 0 for k, v in maint.items()
+                  if k not in ("lsh_hash", "gather_distance")),
+          f"{tag}: the maintainer launched {maint} for {spy.folds} folds")
+    want = add_launches(spy.expected(hb), maint)
+    check(total == want, f"{tag}: launched {total}, its searches, folds "
+                         f"and ticks imply {want}")
+    return dict(maintenance=maint, searches=spy.expected(hb))
+
+
+def phase_tiered(wl, dev) -> dict:
+    """The tiered tier at ``bench_substrates.run_tiered``'s settings on
+    the medrag workload: k=4, batches of 128, 333 cold frames,
+    ``TieredSpec(hot_fraction=0.05, promote_top=16, demote_after=1)``,
+    the maintainer at ``PolicyConfig(observe_every=1, baseline_every=8,
+    min_batches=4)`` ticking every 2 batches over the first half of the
+    stream, then the measured second half with full-corpus scan
+    co-traffic before each batch.
+
+    * twins: the adaptive card twin (``create``); a frozen-hot-set twin
+      (its cold tier under a plain ``CatapultMaintainer``, so the two
+      cold tiers see the same maintenance and differ only in the hot
+      set and its tier pins) and a CPU twin over copies of its directory
+      taken at ``create``; a pure-disk control over the same cold graph.
+      Adaptive cold block reads a query below the frozen twin's; the CPU
+      twin's hot sets and tier counters equal the card's after every
+      tick; every returned id's distance is its corpus row's;
+    * once more with ``cold_tier="sharded"`` (2 shards);
+    * save, then ``open``: the reopened database's ``publish=False`` ids
+      equal the live one's after the save;
+    * launches: the searches as ``PathSpy`` implies (cold units at the
+      disk formula, the hot tier at the RAM diskann one), the folds one
+      ``lsh_hash`` each, the ticks ``gather_distance`` alone."""
+    from repro_torch import db
+    from repro_torch.adapt import CatapultMaintainer, PolicyConfig
+    n = wl.corpus.shape[0]
+    q = wl.queries
+    half = (q.shape[0] // 2 // TIER_BATCH) * TIER_BATCH
+    truth = brute_force_knn_cuda(wl.corpus, q[half:], TIER_K, dev)
+    rng = np.random.default_rng(7)
+    scan = (wl.corpus[rng.choice(n, TIER_BATCH, replace=False)]
+            + 0.1 * rng.normal(size=(TIER_BATCH, wl.corpus.shape[1]))
+            ).astype(np.float32)
+    cfg = db.TieredSpec(hot_fraction=0.05, promote_top=16, demote_after=1)
+    out, paths, opened, ticks = {}, {}, [], {}
+    tmp = tempfile.mkdtemp(prefix="tiered_")
+
+    def run(tag, d, maintained, hb="unfused", where=dev):
+        if maintained == "cold only":
+            # the frozen twin's cold tier gets the same maintenance (TTL,
+            # drift flush, gate, shadow batches) as the adaptive twin's;
+            # only the rebalance, and so its hot set, is missing
+            m = CatapultMaintainer(d.backend, PolicyConfig(**TIER_POLICY),
+                                   tick_every=d.spec.adapt_tick_every)
+        else:
+            m = d.attach_maintainer(PolicyConfig(**TIER_POLICY)) \
+                if maintained else None
+        ticks[tag] = []
+
+        def drive():
+            warm = tiered_replay(d, q[:half], m, ticks[tag],
+                                 corpus=wl.corpus)
+            return warm, tiered_measured(d, q[half:], truth, scan)
+
+        if where == "cpu":
+            warm, meas = drive()
+        else:
+            units = getattr(d.backend, "shards", None) or [d.backend]
+            tiered = d.backend if d.caps.tier == "tiered" else None
+            with PathSpy(units, tiered) as spy:
+                (warm, meas), paths[tag] = counted(drive)
+            out[f"{tag}_launch_split"] = check_tiered_launches(
+                tag, spy, hb, paths[tag], ticks[tag])
+        out[tag] = dict(meas, warm_batch_ms_mean=float(np.mean(warm)))
+        if d.caps.tier == "tiered":
+            eng = d.backend
+            s0 = eng.tier_stats()
+            out[tag].update(s0, units=len(d.backend.shards))
+            live = eng._hot_gid >= 0
+            check(np.array_equal(
+                eng.hot._vec_np[: live.size][live] if eng.hot is not None
+                else np.empty((0, wl.corpus.shape[1]), np.float32),
+                wl.corpus[eng._hot_gid[live]]),
+                f"{tag}: a hot row is not its gid's corpus row")
+        print(f"tiered {tag}: {out[tag]}", flush=True)
+        return m
+
+    try:
+        path = os.path.join(tmp, "adaptive.d")
+        t0 = time.perf_counter()
+        card, paths["tiered_create"] = counted(lambda: db.create(
+            db.IndexSpec(tier="tiered", cache_frames=TIER_FRAMES,
+                         path=path, tiered=cfg), wl.corpus))
+        out["create_s"] = time.perf_counter() - t0
+        opened.append(card)
+        built = paths["tiered_create"]
+        check(built["gather_distance"] > 0
+              and sum(built.values()) == built["gather_distance"],
+              f"the tiered build launched {built}")
+        frozen_dir = shutil.copytree(path, os.path.join(tmp, "frozen.d"))
+        cpu_dir = shutil.copytree(path, os.path.join(tmp, "cpu.d"))
+        cold = card.backend.cold
+        disk = db.create(db.IndexSpec(tier="disk", cache_frames=TIER_FRAMES,
+                                      path=os.path.join(tmp, "disk.ctpl")),
+                         wl.corpus, prebuilt=(np.array(cold._adj_np[:n]),
+                                              cold.medoid))
+        opened.append(disk)
+        run("disk_control", disk, False)
+        m = run("adaptive", card, True)
+        check(len(m._units) == 1, "the tiered maintainer's units")
+        frozen = db.open(frozen_dir, spec=db.IndexSpec(
+            cache_frames=TIER_FRAMES))
+        opened.append(frozen)
+        run("frozen", frozen, "cold only")
+        cpu = db.open(cpu_dir, spec=db.IndexSpec(cache_frames=TIER_FRAMES),
+                      device="cpu")
+        opened.append(cpu)
+        run("cpu", cpu, True, where="cpu")
+        same = [np.array_equal(a["hot"], b["hot"]) and a["stats"] == b["stats"]
+                for a, b in zip(ticks["adaptive"], ticks["cpu"]) if "hot" in a]
+        out["cpu_rebalances_equal"] = float(np.mean(same)) if same else None
+        check(same and all(same), f"the CPU twin's rebalances differ from "
+                                  f"the card's: {same}")
+        a, f = out["adaptive"], out["frozen"]
+        check(a["promotions"] > 0, f"no row was promoted: {a}")
+        check(a["block_reads_per_query"] < f["block_reads_per_query"],
+              f"adaptive cold block reads a query {a['block_reads_per_query']}"
+              f" are not below the frozen twin's "
+              f"{f['block_reads_per_query']}")
+
+        # the same with a sharded cold tier (2 shards)
+        t0 = time.perf_counter()
+        sharded = db.create(db.IndexSpec(
+            tier="tiered", n_shards=2, cache_frames=TIER_FRAMES,
+            path=os.path.join(tmp, "sharded.d"),
+            tiered=dataclasses.replace(cfg, cold_tier="sharded")),
+            wl.corpus)
+        out["sharded_create_s"] = time.perf_counter() - t0
+        opened.append(sharded)
+        ms = run("sharded_cold", sharded, True)
+        check(len(ms._units) == 2, "the maintainer does not reach both "
+                                   "cold shards")
+        check(out["sharded_cold"]["promotions"] > 0,
+              f"no row was promoted over the sharded cold tier")
+
+        # save, then open: the same ids
+        for unit in card.backend.shards:
+            unit.catapult_override = None     # a pending shadow batch
+        card.save()
+        probe = q[half: half + TIER_BATCH]
+        after = card.search(probe, k=TIER_K, beam_width=8, publish=False)
+        back = db.open(path, spec=db.IndexSpec(cache_frames=TIER_FRAMES))
+        opened.append(back)
+        got = back.search(probe, k=TIER_K, beam_width=8, publish=False)
+        out["reopen_ids_equal"] = bool(np.array_equal(got.ids, after.ids))
+        check(out["reopen_ids_equal"], "the reopened tiered database's ids "
+                                       "differ from the saved one's")
+        check(back.backend.tier_stats()["promotions"] == a["promotions"],
+              "the reopened tiered database lost its counters")
+    finally:
+        for d in opened:
+            d.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["launches"] = paths
+    return out
+
+
+def trace_stages(tr) -> dict:
+    """A sharded trace's top-level spans and each shard's own."""
+    out = {f"{st}_ms": tr.stage_ms(st)
+           for st in ("scatter", "merge", "route", "fetch", "rerank")}
+    out["total_ms"] = tr.total_ms
+    out["shards"] = {sh["name"]: {sp.name: sp.ms for sp in sh["stages"]}
+                     for sh in tr.shards}
+    return out
+
+
+def deploy_sharded(vec_np, queries, rows, paths, dev, tmp, seed) -> dict:
+    """1,000,000 x 768 on the sharded tier: S = 4 shards of 250,000 rows,
+    each over its own random regular graph of degree 64 (local ids),
+    written through the port's ``DiskVectorSearchEngine.build(prebuilt=)``
+    with seed ``seed + s`` and PQ M=8, the manifest through
+    ``ShardedDiskVectorSearchEngine`` (``create`` refuses ``prebuilt``,
+    and a host Vamana build at 1M is out of reach); then
+    ``repro_torch.db.open`` of the directory as a catapult and a diskann
+    twin, each 4 explained batches of 4,096 (scatter, merge and per-shard
+    route / fetch / rerank ms, block reads, hit rate), the last under
+    the profiler (idle share), and the device bytes each holds against
+    the vector table."""
+    from repro_torch import db
+    from repro_torch.core.vamana import _random_regular_init, medoid_index
+    from repro_torch.store.io_engine import DiskVectorSearchEngine
+    from repro_torch.store.layout import HEADER_SIZE, block_size_for
+    from repro_torch.store.sharded_store import ShardedDiskVectorSearchEngine
+    out, dbs = {}, {}
+    n = N
+    store_bytes = DEPLOY_SHARDS * HEADER_SIZE + n * block_size_for(D, 64)
+    free = shutil.disk_usage(tmp).free
+    out.update(store_bytes=store_bytes, free_disk_bytes=free)
+    if free < 2 * store_bytes:
+        n = max(20_000, int(N * free / (2 * store_bytes))
+                // (4 * 1000) * (4 * 1000))
+        print(f"reduced: the sharded deployment phase stores {n:,} rows, "
+              f"not {N:,}: {free / 1e9:.1f} GB free", flush=True)
+    per = n // DEPLOY_SHARDS
+    frames = (n // 16) // DEPLOY_SHARDS
+    path = os.path.join(tmp, "sharded.d")
+    rng = np.random.default_rng(seed + 1)
+    print(f"reduced: the sharded deployment phase's {DEPLOY_SHARDS} shards "
+          f"of {per:,} rows each take a random regular graph of degree 64, "
+          f"not a Vamana build (host RobustPrune at 1M x 768 is beyond a "
+          f"smoke run)", flush=True)
+
+    def write():
+        eng = ShardedDiskVectorSearchEngine(
+            store_dir=path, n_shards=DEPLOY_SHARDS, pq_subspaces=PQ_M,
+            cache_frames=frames, io=db.IoSpec(), device=dev)
+        os.makedirs(path)
+        eng.offsets = np.arange(DEPLOY_SHARDS + 1, dtype=np.int64) * per
+        try:
+            for s in range(DEPLOY_SHARDS):
+                part = vec_np[s * per: (s + 1) * per]
+                shard = DiskVectorSearchEngine(
+                    mode="catapult", pq_subspaces=PQ_M, capacity=per,
+                    store_path=os.path.join(path, f"shard_{s:04d}.ctpl"),
+                    **eng._shard_kwargs(s))
+                eng.shards.append(shard)
+                shard.build(part, prebuilt=(
+                    _random_regular_init(per, 64, rng), medoid_index(part)))
+            eng.n_active, eng.dim = n, D
+            eng._write_manifest()
+        finally:
+            eng.close()
+
+    t0 = time.perf_counter()
+    _, paths["deployment_sharded_write"] = counted(write)
+    out["write_s"] = time.perf_counter() - t0
+    check(not any(paths["deployment_sharded_write"].values()),
+          f"the sharded store write launched "
+          f"{paths['deployment_sharded_write']}")
+    table_bytes = n * D * 4
+    ids = {}
+    try:
+        for name, mode in (("catapult", "catapult"), ("diskann", "diskann")):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            d = dbs[name] = db.open(path, mode=mode, spec=db.IndexSpec(
+                cache_frames=frames))
+            out[f"open_s_{name}"] = time.perf_counter() - t0
+            held = torch.cuda.memory_allocated() - before
+            out[f"device_bytes_after_open_{name}"] = held
+            check(held < table_bytes / 4,
+                  f"deployment sharded: the {name} engine holds {held} "
+                  f"bytes on the card, not well under the {table_bytes}-"
+                  f"byte vector table")
+            traces, busy = [], []
+
+            def drive(d=d, traces=traces, busy=busy):
+                for i in range(4):
+                    def one(i=i):
+                        traces.append(d.search(queries[i * B: (i + 1) * B],
+                                               k=10, explain=True))
+                    if i == 3:
+                        busy.append(device_busy_ms(one))
+                    else:
+                        one()
+
+            with PathSpy(d.backend.shards) as spy:
+                _, paths[f"deployment_sharded_{name}"] = counted(drive)
+            want = spy.expected("unfused")
+            check(paths[f"deployment_sharded_{name}"] == want,
+                  f"deployment sharded {name}: launched "
+                  f"{paths[f'deployment_sharded_{name}']}, its shard "
+                  f"searches imply {want}")
+            ids[name] = np.concatenate([t.ids for t in traces])
+            reads = np.concatenate([t.blocks_read for t in traces])
+            hits = np.concatenate([t.cache_hits for t in traces])
+            last = traces[-1]
+            out[name] = dict(
+                batches=[trace_stages(t) for t in traces],
+                shard_loop_iterations=[i for _, i in spy.cold],
+                mean_hops=float(np.mean([t.hops.mean() for t in traces])),
+                block_reads_per_query=float(reads.mean()),
+                cache_hits_per_query=float(hits.mean()),
+                hit_rate=float(hits.sum() / max(hits.sum() + reads.sum(), 1)),
+                top1_is_source_row=float(np.mean(ids[name][:, 0]
+                                                 == rows[: 4 * B])),
+                last_batch=dict(wall_ms=last.total_ms,
+                                device_busy_ms=busy[0],
+                                idle_share=(1.0 - busy[0] / last.total_ms)
+                                if busy[0] > 0 else None),
+                io_stats=d.io_stats()._asdict())
+            print(f"deployment sharded {name}: {out[name]}", flush=True)
+    finally:
+        for d in dbs.values():
+            d.close()
+        shutil.rmtree(path, ignore_errors=True)
+    out.update(rows=n, vector_table_bytes=table_bytes)
+    return out
+
+
+def deploy_mesh(vectors, vec_np, queries, rows, paths, dev, seed) -> dict:
+    """The mesh search at 1,000,000 x 768: the deployment table as S = 4
+    RAM shards of 250,000 rows, each over its own random regular graph of
+    degree 64, D = 8 virtual devices ((2, 4)), 4 steps of 4,096 queries
+    (each virtual device searches 2,048 against its shard, beam 16); the
+    last step under the profiler (its device time against the unprofiled
+    steps' wall time)."""
+    from repro_torch.core import lsh as lsh_mod
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.beam_search import SearchSpec
+    from repro_torch.core.vamana import _random_regular_init, medoid_index
+    rng = np.random.default_rng(seed + 2)
+    per = N // MESH[1]
+    adj = np.concatenate([_random_regular_init(per, 64, rng)
+                          for _ in range(MESH[1])])
+    medoids = [medoid_index(vec_np[s * per: (s + 1) * per])
+               for s in range(MESH[1])]
+    n_dev, nb = MESH[0] * MESH[1], 2 ** 8
+    lsh = lsh_mod.make_lsh(torch.Generator().manual_seed(seed), 8, D, dev)
+    state = sh.ShardedEngineState(
+        vectors=vectors, adjacency=torch.as_tensor(adj, device=dev),
+        medoids=torch.tensor(medoids, dtype=torch.int32, device=dev),
+        hyperplanes=lsh.hyperplanes,
+        bucket_ids=torch.full((n_dev * nb, 40), -1, dtype=torch.int32,
+                              device=dev),
+        bucket_stamp=torch.full((n_dev * nb, 40), -1, dtype=torch.int32,
+                                device=dev),
+        bucket_step=torch.zeros(n_dev, dtype=torch.int32, device=dev))
+    step = sh.make_sharded_search(
+        MESH, SearchSpec(beam_width=16, k=10, max_iters=64), per, 8)
+    ms, got, busy = [], [], []
+
+    def run():
+        nonlocal state
+        for i in range(4):
+            def one(i=i):
+                nonlocal state
+                state, ids, _ = step(state, torch.as_tensor(
+                    queries[i * B: (i + 1) * B], device=dev))
+                got.append(ids.cpu().numpy())
+            t0 = time.perf_counter()
+            if i == 3:
+                busy.append(device_busy_ms(one))
+            else:
+                one()
+            ms.append((time.perf_counter() - t0) * 1e3)
+
+    (_, iters), paths["deployment_mesh"] = counted(lambda: spy_lookups(run))
+    want = expected_launches("catapult", "unfused", iters)
+    check(paths["deployment_mesh"] == want and len(iters) == 4 * n_dev,
+          f"deployment mesh: launched {paths['deployment_mesh']}, its "
+          f"{len(iters)} device steps imply {want}")
+    ids = np.concatenate(got)
+    out = dict(step_ms=ms, device_loop_iterations=iters,
+               top1_is_source_row=float(np.mean(ids[:, 0] == rows[: 4 * B])),
+               # the profiled step's own wall time is mostly the
+               # profiler's: its device time stands against the mean wall
+               # time of the three unprofiled steps
+               last_step=dict(wall_ms=float(np.mean(ms[:3])),
+                              device_busy_ms=busy[0],
+                              idle_share=(1.0 - busy[0] / np.mean(ms[:3]))
+                              if busy[0] > 0 else None),
+               published=int(state.bucket_step.sum()),
+               adjacency_bytes=adj.nbytes)
+    print(f"deployment mesh: {out}", flush=True)
+    return out
+
+
+def deploy_tiered(tmp, disk_out, queries, paths, dev) -> dict:
+    """The tiered tier at 1,000,000 x 768 over the disk deployment phase's
+    store: its CTPL file (and ``.io.json`` / ``.adapt.npz`` sidecars,
+    buckets and telemetry included) renamed to ``cold.ctpl`` in a tiered
+    directory with a ``tiered.json`` and no ``hot.npz`` (no second
+    3.58 GB write), ``TieredSpec(hot_capacity=DEPLOY_HOT)``, opened and
+    served 4 batches of 4,096 (the disk phase's queries) with the
+    ``TieredMaintainer`` ticking after each: promotions, hot hits, each
+    tick's seconds (hot builds on the host) and cold block reads a query
+    beside the single-store phase's."""
+    from repro_torch import db
+    from repro_torch.adapt import PolicyConfig
+    from repro_torch.tiered import (TIERED_FORMAT, TIERED_MANIFEST_NAME,
+                                    TIERED_VERSION)
+    n = disk_out["rows"]
+    store = os.path.join(tmp, "deploy.ctpl")
+    tdir = os.path.join(tmp, "tiered.d")
+    os.makedirs(tdir)
+    for ext in ("", ".io.json", ".adapt.npz"):
+        if os.path.exists(store + ext):
+            os.rename(store + ext, os.path.join(tdir, "cold.ctpl" + ext))
+    cfg = db.TieredSpec(hot_capacity=DEPLOY_HOT, promote_top=16,
+                        demote_after=1)
+    spec = db.IndexSpec()
+    manifest = {"format": TIERED_FORMAT, "version": TIERED_VERSION,
+                "cold_tier": "disk", "cold": "cold.ctpl", "mode": "catapult",
+                "dim": D, "seed": spec.seed, "n_bits": spec.n_bits,
+                "bucket_capacity": spec.bucket_capacity, "filtered": False,
+                "n_labels": 0, "tiered": cfg.to_dict(), "hot_file": "hot.npz"}
+    Path(tdir, TIERED_MANIFEST_NAME).write_text(json.dumps(manifest,
+                                                           indent=1))
+    print(f"reduced: the tiered deployment phase holds at most "
+          f"{DEPLOY_HOT:,} hot rows (hot_capacity), so that a hot rebuild "
+          f"of 768-wide rows stays a host build of seconds", flush=True)
+    out, ticks = {}, []
+    t0 = time.perf_counter()
+    d = db.open(tdir, spec=db.IndexSpec(cache_frames=n // 16))
+    out["open_s"] = time.perf_counter() - t0
+    try:
+        check(db.sniff(tdir) == ("tiered", TIERED_VERSION)
+              and d.backend.hot is None, "the 1M tiered layout")
+        m = d.attach_maintainer(PolicyConfig())
+        eng = d.backend
+        batches = []
+
+        def drive():
+            for i in range(4):
+                q = queries[i * B: (i + 1) * B]
+                h0, r0 = eng.hot_hits, d.io_stats().block_reads
+                tr = d.search(q, k=10, explain=True)
+                batch = dict(total_ms=tr.total_ms,
+                             scatter_ms=tr.stage_ms("scatter"),
+                             merge_ms=tr.stage_ms("merge"),
+                             fetch_ms=tr.stage_ms("fetch"),
+                             hot_hits=(eng.hot_hits - h0) / B,
+                             cold_block_reads_per_query=(
+                                 d.io_stats().block_reads - r0) / B)
+
+                def fold(q=q, st=tr.stats):
+                    t1 = time.perf_counter()
+                    m.observe(q, st, np.ones(B, bool))
+                    m.tick()
+                    return time.perf_counter() - t1
+                batch["tick_s"], n_tick = launches_of(fold)
+                ticks.append(dict(launches=n_tick))
+                batch.update(eng.tier_stats())
+                batches.append(batch)
+                print(f"deployment tiered batch {i}: {batch}", flush=True)
+
+        with PathSpy(eng.shards, eng) as spy:
+            _, paths["deployment_tiered"] = counted(drive)
+        out["launch_split"] = check_tiered_launches(
+            "deployment tiered", spy, "unfused", paths["deployment_tiered"],
+            ticks)
+        out.update(batches=batches, tier_stats=eng.tier_stats(),
+                   single_store_block_reads_per_query=disk_out[
+                       "catapult_unfused"]["block_reads_per_query"])
+        check(eng.promotions > 0, "no row was promoted at 1M")
+    finally:
+        d.close()
+        shutil.rmtree(tdir, ignore_errors=True)
+    print(f"deployment tiered: {out}", flush=True)
+    return out
+
+
+def tier_process(seed: int, dev) -> dict:
+    """The second process's work: ``phase_tiers``, then the sharded tier
+    at 1,000,000 x 768 (``deploy_sharded``) over the deployment table,
+    drawn from ``--seed`` as the main process draws it, and 4 x 4,096
+    queries of its own drawn the same way (source rows plus 0.1 noise)."""
+    out = phase_tiers(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    vectors = torch.randn((N, D), generator=gen, device=dev)
+    rows = torch.randint(0, N, (4 * B,), generator=gen, device=dev)
+    queries = (vectors[rows] + 0.1 * torch.randn(
+        (4 * B, D), generator=gen, device=dev)).cpu().numpy()
+    vec_np = vectors.cpu().numpy()
+    del vectors
+    paths, tmp = {}, tempfile.mkdtemp(prefix="deploy_sharded_")
+    t0 = time.perf_counter()
+    try:
+        sharded = deploy_sharded(vec_np, queries, rows.cpu().numpy(), paths,
+                                 dev, tmp, seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    sharded.update(launches=paths, seconds=time.perf_counter() - t0)
+    print(f"phase deployment sharded: {sharded['seconds']:.1f} s",
+          flush=True)
+    out["deployment_sharded"] = sharded
+    return out
+
+
+def phase_tiers(dev) -> dict:
+    """The sharded, mesh and tiered phases on one medrag workload."""
+    from repro_torch.data import make_medrag_zipf
+    wl = make_medrag_zipf(n=BENCH_N, n_queries=BENCH_Q)
+    out = {}
+    for name, fn in (("sharded", phase_sharded), ("mesh", phase_mesh),
+                     ("tiered", phase_tiered)):
+        t0 = time.perf_counter()
+        out[name] = fn(wl, dev)
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"phase {name}: {out[name]['seconds']:.1f} s", flush=True)
+    return out
+
+
 def phase_filtered(dev) -> dict:
-    """``make_papers()`` (20,000 x 24, 16 labels, 2,048 queries, each with
-    its own label): one ``build_stitched_graph`` on the card, then the
-    catapult, diskann, fused and CPU twins with ``IndexSpec(filters=True)``
-    over it, replayed twice, at full precision and with ``pq=8``."""
+    """``make_papers(n=PAPERS_N)`` (10,000 x 24, 16 labels, 2,048 queries,
+    each with its own label): one ``build_stitched_graph`` on the card,
+    then the catapult, diskann, fused and CPU twins with
+    ``IndexSpec(filters=True)`` over it, replayed twice, at full
+    precision and with ``pq=8``."""
     from repro_torch import db
     from repro_torch.core.filters import build_stitched_graph
     from repro_torch.data import make_papers
 
-    wl = make_papers()
+    print(f"reduced: the filtered phase builds its stitched graph over "
+          f"make_papers(n={PAPERS_N:,}), not its default 20,000 rows: the "
+          f"build is minutes of host RobustPrune, and the run has to stay "
+          f"inside its time limit", flush=True)
+    wl = make_papers(n=PAPERS_N)
     truth = brute_force_knn_cuda(wl.corpus, wl.queries, 10, dev,
                                  labels=wl.labels,
                                  filter_labels=wl.filter_labels)
@@ -1975,6 +2958,8 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
     flat = flat[flat >= 0]
     _, first = np.unique(flat, return_index=True)
     dead = flat[np.sort(first)][:B]
+    # the disk phase's store stays here for the tiered phase
+    tmp = tempfile.mkdtemp(prefix="deploy_disk_")
     for name, fn in (
             ("filtered", lambda: deploy_filtered(
                 vec_np, graph, queries, rows_np, rng, paths, ids, dev)),
@@ -1986,9 +2971,17 @@ def phase_deployment(vectors, gen, seed: int, dev, kernel_ms) -> dict:
                 vec_np[:n96], graph96, queries, rng, paths)),
             ("serve", lambda: deploy_serve(vectors, vec_np, graph, dev)),
             ("disk", lambda: deploy_disk(vec_np, graph, queries, paths,
-                                         dev))):
+                                         dev, tmp)),
+            ("tiered", lambda: deploy_tiered(tmp, out["disk"], queries,
+                                             paths, dev)),
+            ("mesh", lambda: deploy_mesh(vectors, vec_np, queries, rows_np,
+                                         paths, dev, seed))):
         t0 = time.perf_counter()
-        out[name] = fn()
+        try:
+            out[name] = fn()
+        finally:
+            if name == "mesh" or name not in out:
+                shutil.rmtree(tmp, ignore_errors=True)
         out[name]["seconds"] = time.perf_counter() - t0
         print(f"phase deployment {name}: {out[name]['seconds']:.1f} s",
               flush=True)
@@ -2258,6 +3251,52 @@ class ShiftGraph:
         return False
 
 
+class TierPhases:
+    """The sharded, mesh and tiered phases at bench size and the sharded
+    tier at 1M x 768 (``tier_process``) in a second process on the card,
+    started after phase 1 (so no kernel timing overlaps it) beside phases
+    2 to 5: its sharded and tiered builds are minutes of host
+    RobustPrune, and its 1M shard searches minutes of host fetch; run in
+    turn they would push the run past its time limit.  Its own launch
+    counts come back in its JSON.  ``result()`` waits for it, prints its
+    log and reads the JSON; leaving the ``with`` stops it."""
+
+    def __init__(self, path: Path):
+        self.path, self.proc, self.log = path, None, None
+
+    def __enter__(self):
+        return self
+
+    def start(self) -> None:
+        self.log = open(self.path.with_suffix(".log"), "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--tiers",
+             str(self.path)], stdout=self.log, stderr=subprocess.STDOUT)
+
+    def result(self) -> dict:
+        t0 = time.perf_counter()
+        rc = self.proc.wait()
+        self.log.close()
+        print(self.path.with_suffix(".log").read_text(), end="", flush=True)
+        print(f"tier phases: waited {time.perf_counter() - t0:.1f} s for "
+              f"the second process", flush=True)
+        check(rc == 0, f"the tier phases' process exited {rc}")
+        return json.loads(self.path.read_text())
+
+    def __exit__(self, *exc):
+        if self.proc is not None:
+            if self.proc.poll() is None:
+                self.proc.kill()
+            self.proc.wait()
+            self.log.close()
+        return False
+
+
+def json_default(o):
+    """numpy scalars and arrays as plain JSON."""
+    return o.tolist() if hasattr(o, "tolist") else str(o)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2265,6 +3304,8 @@ def main() -> int:
                     help="also write every number of the run to this JSON")
     ap.add_argument("--shift-graph", default=None, metavar="NPZ",
                     help=argparse.SUPPRESS)   # the run's own helper process
+    ap.add_argument("--tiers", default=None, metavar="JSON",
+                    help=argparse.SUPPRESS)   # the run's own second process
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2294,21 +3335,29 @@ def main() -> int:
     t0 = time.perf_counter()
     build_dir = _build.build_all()
     build_s = time.perf_counter() - t0
+    if args.tiers:
+        Path(args.tiers).write_text(json.dumps(
+            tier_process(args.seed, dev), default=json_default))
+        return 0
     print(f"kernels built in {build_s:.1f} s into {build_dir}", flush=True)
     with tempfile.TemporaryDirectory() as tmp, \
-            ShiftGraph(Path(tmp) / "shift_graph.npz") as shift_graph:
+            ShiftGraph(Path(tmp) / "shift_graph.npz") as shift_graph, \
+            TierPhases(Path(tmp) / "tiers.json") as tier_phases:
         return run_phases(args, card, build_dir, build_s, t_run, dev,
-                          shift_graph)
+                          shift_graph, tier_phases)
 
 
 def run_phases(args, card, build_dir, build_s, t_run, dev,
-               shift_graph) -> int:
-    """Every phase, in order, then the kernels line and the device line."""
+               shift_graph, tier_phases) -> int:
+    """Every phase, in order (the tier phases and the sharded deployment
+    in a second process beside phases 2 to 5), then the kernels line and
+    the device line."""
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     vectors = torch.randn((N, D), generator=gen, device=dev)
     kernels = phase_kernels(vectors, gen, dev)
     kernels.update(phase_pq_kernels(gen, dev))
     kernels["l2_distance"] = phase_l2_distance(vectors, dev)
+    tier_phases.start()
     main_path = phase_main_path(args.seed, dev)
     t0 = time.perf_counter()
     filtered = phase_filtered(dev)
@@ -2320,6 +3369,7 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
     print(f"phase adapt shift: {shift['seconds']:.1f} s", flush=True)
     deploy = phase_deployment(vectors, gen, args.seed, dev,
                               {k: v["ms"] for k, v in kernels.items()})
+    tiers = tier_phases.result()
 
     sources = {"fused_hop_l2": ("fused_hop.cu", "fused_hop.py:160"),
                "fused_hop_pq": ("fused_hop_pq.cu", "fused_hop.py:204"),
@@ -2336,6 +3386,9 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
                "adapt_stationary": main_path["adapt_stationary"]["launches"],
                "adapt_shift": shift["adaptive"]["launches"],
                "adapt_shift_frozen": shift["frozen"]["launches"],
+               **{name if name.startswith(part) else f"{part}_{name}": n
+                  for part, out in tiers.items()
+                  for name, n in out["launches"].items()},
                **{name if name.startswith("deployment_")
                   else f"deployment_{name}": n
                   for name, n in deploy["launches"].items()}}
@@ -2360,7 +3413,7 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels,
              "main_path": main_path, "filtered": filtered,
-             "adapt_shift": shift,
+             "adapt_shift": shift, "tiers": tiers,
              "deployment": deploy, "ptxas": ptxas,
              "kernels_line": line}, indent=1, default=str))
     print(json.dumps(line))

@@ -1,4 +1,5 @@
-"""repro_torch.db — the port's front door (RAM and disk tiers).
+"""repro_torch.db — the port's front door (RAM, disk, sharded and tiered
+tiers).
 
     from repro_torch import db as catapultdb
 
@@ -15,18 +16,22 @@
     with catapultdb.open("index.ctpl") as d:               # sniff() -> disk
         d.search(queries, k=10)
 
+    spec = catapultdb.IndexSpec(tier="sharded", n_shards=4, path="idx.d")
+    spec = catapultdb.IndexSpec(tier="tiered", path="tiered.d",
+                                tiered=catapultdb.TieredSpec())
+
 ``create(..., device="cpu")`` / ``open(..., device="cpu")`` run the
 plain PyTorch path instead.
 """
 from repro_torch.db.database import Database
 from repro_torch.db.factory import create, open, sniff
 from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec, IoSpec,
-                                 SearchRequest, SearchResult)
+                                 SearchRequest, SearchResult, TieredSpec)
 from repro_torch.obs import SearchTrace
 from repro_torch.store.cache import IoStats
 
 __all__ = [
     "CapabilityError", "Caps", "Database", "IndexSpec", "IoSpec", "IoStats",
-    "SearchRequest", "SearchResult", "SearchTrace", "create", "open",
-    "sniff",
+    "SearchRequest", "SearchResult", "SearchTrace", "TieredSpec", "create",
+    "open", "sniff",
 ]

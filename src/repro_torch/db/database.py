@@ -1,19 +1,22 @@
-"""The ``Database`` facade — RAM and disk tiers.
+"""The ``Database`` facade — every tier.
 
-Port of ``repro/db/database.py`` for the RAM tier and the single-store
-disk tier: ``search`` (a ``SearchRequest`` or a raw query array with
-keywords, per-request ``publish`` and ``filter_labels``,
-``explain=True`` traces), ``upsert`` (with ``keys=`` for a true upsert),
-``delete`` (by id or by key), ``consolidate``, ``save`` (the engine's
-files plus the ``<store>.keys.npz`` key map), ``io_stats`` (all-zero on
-the RAM tier), ``serve`` (the micro-batching frontend, with the
+Port of ``repro/db/database.py`` for the RAM, single-store disk,
+sharded and tiered tiers: ``search`` (a ``SearchRequest`` or a raw
+query array with keywords, per-request ``publish`` and
+``filter_labels``, ``explain=True`` traces), ``upsert`` (with ``keys=``
+for a true upsert), ``delete`` (by id or by key), ``consolidate``,
+``save`` (the engine's files plus the key map), ``io_stats`` (all-zero
+on the RAM tier), ``serve`` (the micro-batching frontend, with the
 drift-aware maintainer attached when the spec carries an adapt policy),
-``attach_maintainer``, ``metrics``, ``warm``, ``close`` and the host
-views.  Every search passes an explicit all-True or all-False
-``publish_mask``, as the reference's does.  Mutations and maintainer
-ticks serialize on one lock; searches take none.  The ingest methods
-raise ``NotImplementedError`` naming, by title, the ROADMAP item that
-ports them.
+``attach_maintainer`` (a ``TieredMaintainer`` on the tiered tier),
+``metrics`` (with the tiered tier's ``tier_stats()`` as
+``catapultdb_tier_*``), ``warm``, ``close`` and the host views (where
+one engine owns the whole row range, ``caps.host_views``).  Every
+search passes an explicit all-True or all-False ``publish_mask``, as
+the reference's does.  Mutations and maintainer ticks serialize on one
+lock; searches take none.  The ingest methods raise
+``NotImplementedError`` naming, by title, the ROADMAP item that ports
+them.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.adapt import CatapultMaintainer
-from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec,
-                                 SearchRequest, SearchResult)
+from repro_torch.db.spec import (INGEST_ITEM, CapabilityError, Caps,
+                                 IndexSpec, SearchRequest, SearchResult)
 from repro_torch.ingest.keys import (KeyMap, ingest_state_path,
                                      write_ingest_state)
 from repro_torch.obs import MetricsRegistry, TraceRecorder, build_search_trace
@@ -72,6 +75,15 @@ def _io_metrics(db_ref) -> dict:
             "catapultdb_io_prefetch_wasted": float(st.prefetch_wasted),
             "catapultdb_io_prefetch_cancelled":
                 float(st.prefetch_cancelled)}
+
+
+def _tier_metrics(db_ref) -> dict:
+    """The tiered engine's ``tier_stats()`` as ``catapultdb_tier_*``."""
+    db = db_ref()
+    if db is None:
+        return {}
+    return {f"catapultdb_tier_{key}": float(v)
+            for key, v in db.backend.tier_stats().items()}
 
 
 def _keys_metrics(db_ref) -> dict:
@@ -128,6 +140,8 @@ class Database:
             reg.register_collector(partial(_io_metrics, me))
             reg.register_collector(partial(_adapt_metrics, me))
             reg.register_collector(partial(_keys_metrics, me))
+            if hasattr(backend, "tier_stats"):
+                reg.register_collector(partial(_tier_metrics, me))
 
     def _record_search(self, batch: int, ms: float, stats,
                        explained: bool) -> None:
@@ -303,6 +317,12 @@ class Database:
         spec.path)`` resumes this exact state."""
         self._need("persistent", "save()")
         with self._mutate_lock:
+            extra = getattr(self.backend, "manifest_extra", None)
+            if self._keymap is not None and extra is not None:
+                # the sharded manifest points at the key map; it is
+                # rewritten from scratch on every save, so the entry
+                # rides in manifest_extra
+                extra["keys"] = "keys.npz"
             self.backend.save()
             if self._keymap is not None:
                 write_ingest_state(
@@ -323,8 +343,7 @@ class Database:
         yet.
         """
         if ingest is not None:
-            _not_ported("serve(ingest=...)",
-                        "ROADMAP queue 1, item 'tiered/ and ingest/'")
+            _not_ported("serve(ingest=...)", INGEST_ITEM)
         maintainer = None
         policy = self.spec.adapt if maintain is None else maintain
         if policy:
@@ -340,17 +359,23 @@ class Database:
         return fe
 
     def attach_maintainer(self, policy=None, tick_every: Optional[int] = None):
-        """Create (and remember) a ``CatapultMaintainer`` over the
-        backend, sharing this database's mutate lock; ``policy`` and
+        """Create (and remember) the right maintainer over the backend —
+        ``TieredMaintainer`` on the tiered tier (catapult maintenance and
+        hot/cold rebalancing in one tick), ``CatapultMaintainer``
+        elsewhere — sharing this database's mutate lock; ``policy`` and
         ``tick_every`` default to the spec's ``adapt`` and
         ``adapt_tick_every``.  (The reference's background-consolidate
         threshold comes from ``IngestSpec``, which arrives with ROADMAP
-        queue 1, item 'tiered/ and ingest/'.)"""
+        queue 1, item 'ingest/'.)"""
         if self.backend.mode != "catapult":
             raise CapabilityError(
                 f"maintainer needs mode='catapult', this database is "
                 f"{self.backend.mode!r}")
-        self.maintainer = CatapultMaintainer(
+        cls = CatapultMaintainer
+        if self.caps.tier == "tiered":
+            from repro_torch.tiered import TieredMaintainer
+            cls = TieredMaintainer
+        self.maintainer = cls(
             self.backend, policy or self.spec.adapt,
             tick_every=tick_every or self.spec.adapt_tick_every,
             mutate_lock=self._mutate_lock)
@@ -403,6 +428,8 @@ class Database:
 
     @property
     def dim(self) -> int:
+        if getattr(self.backend, "dim", 0):
+            return int(self.backend.dim)          # sharded/tiered facade
         return int(self.backend._vec_np.shape[1])
 
     @property
@@ -454,5 +481,4 @@ class Database:
 
     # ------------------------------------------------ not in the port yet
     def ingest_queue(self, batch_size: Optional[int] = None):
-        _not_ported("ingest_queue", "ROADMAP queue 1, item 'tiered/ and "
-                                    "ingest/'")
+        _not_ported("ingest_queue", INGEST_ITEM)

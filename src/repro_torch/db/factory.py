@@ -1,13 +1,14 @@
 """``create``/``open`` — the two ways a CatapultDB database comes to be.
 
-Port of ``repro/db/factory.py`` for the RAM tier and the single-store
-disk tier.  ``create(spec, vectors[, labels])`` builds a fresh index on
-the tier the spec names; ``open(path)`` reopens a persisted CTPL block
-file (any version, v1–v3), its sidecars included.  ``sniff`` tells what
-a path holds, sharded and tiered manifest directories too, but those
-tiers and empty-bootstrap creation (streaming ingest) come later
-(ROADMAP queue 1, items 'Sharded tier' and 'tiered/ and ingest/'):
-asking for them raises before any state is opened.
+Port of ``repro/db/factory.py``.  ``create(spec, vectors[, labels])``
+builds a fresh index on the tier the spec names; ``open(path)`` reopens
+what is persisted there, sniffing it: a CTPL block file (any version,
+v1–v3) opens as the single-store disk tier, a sharded manifest
+directory as the scatter-gather tier, a tiered manifest directory as
+the hot/cold tiered database (a tiered layout wins over the sharded
+manifest nested in its cold tier), sidecars included.  Empty-bootstrap
+creation and persisted streaming-ingest state come later (ROADMAP queue
+1, item 'ingest/'): asking for them raises before any state is opened.
 """
 from __future__ import annotations
 
@@ -22,18 +23,14 @@ import numpy as np
 
 from repro_torch.core.engine import VectorSearchEngine
 from repro_torch.db.database import Database
-from repro_torch.db.spec import Caps, IndexSpec
+from repro_torch.db.spec import INGEST_ITEM, Caps, IndexSpec, TieredSpec
 from repro_torch.device import resolve_device
 from repro_torch.ingest.keys import (KeyMap, ingest_spec_path,
                                      ingest_state_path, read_ingest_state)
 from repro_torch.store.layout import MAGIC
 
-# the reference's manifest names (repro/store/sharded_store.py,
-# repro/tiered/engine.py), so that sniff() names what it finds
-MANIFEST_NAME, MANIFEST_FORMAT = "manifest.json", "ctpl-sharded"
-TIERED_MANIFEST_NAME, TIERED_FORMAT = "tiered.json", "ctpl-tiered"
-_SHARDED_ITEM = "ROADMAP queue 1, item 'Sharded tier'"
-_INGEST_ITEM = "ROADMAP queue 1, item 'tiered/ and ingest/'"
+# the engine modules import repro_torch.db.spec, so this module (which
+# the package's __init__ imports) pulls them in where they are used
 
 
 def sniff(path: str) -> tuple[str, int]:
@@ -43,6 +40,9 @@ def sniff(path: str) -> tuple[str, int]:
     block file.  Raises ``FileNotFoundError``/``ValueError`` otherwise.
     """
     if os.path.isdir(path):
+        from repro_torch.store.sharded_store import (MANIFEST_FORMAT,
+                                                     MANIFEST_NAME)
+        from repro_torch.tiered import TIERED_FORMAT, TIERED_MANIFEST_NAME
         # tiered outranks sharded: a tiered layout contains a sharded
         # manifest when its cold tier is sharded, never the reverse
         tpath = os.path.join(path, TIERED_MANIFEST_NAME)
@@ -74,9 +74,22 @@ def sniff(path: str) -> tuple[str, int]:
     return "disk", version
 
 
-def _caps(tier: str, filtered: bool) -> Caps:
+def _caps(tier: str, filtered: bool, host_views: bool = True) -> Caps:
     return Caps(tier=tier, mutable=True, filtered=bool(filtered),
-                persistent=tier != "ram", sharded=tier == "sharded")
+                persistent=tier != "ram", sharded=tier == "sharded",
+                host_views=bool(host_views))
+
+
+def _host_views(tier: str, eng) -> bool:
+    """Per-row host views (``db.vectors``/``db.tombstones``) exist when
+    ONE engine owns the whole row range: any single store, or a tiered
+    database over a single-store cold tier.  Shard facades keep their
+    rows per shard."""
+    if tier == "sharded":
+        return False
+    if tier == "tiered":
+        return eng.tiered.cold_tier != "sharded"
+    return True
 
 
 def create(spec: IndexSpec, vectors: Optional[np.ndarray] = None,
@@ -86,18 +99,20 @@ def create(spec: IndexSpec, vectors: Optional[np.ndarray] = None,
     ``labels`` when ``spec.filters``) on ``device`` (the card by
     default; raises if there is none) and run the spec's warm-up
     searches.  ``tier="disk"`` writes the CTPL block file at
-    ``spec.path`` (and its sidecars).
+    ``spec.path`` (and its sidecars); ``tier="sharded"`` and
+    ``tier="tiered"`` write their manifest directories there.
 
     ``prebuilt``: optional (adjacency, medoid[, label_entries]) from a
     previous build over the SAME vectors — shares one graph across
     engines, or carries the reference package's graph across.
+    Single-store tiers only.
     """
     dev = resolve_device(device)
     if vectors is None:
         raise NotImplementedError(
             f"create(spec) with no vectors bootstraps a streaming-ingest "
             f"database, which is not ported to repro_torch yet "
-            f"({_INGEST_ITEM})")
+            f"({INGEST_ITEM})")
     vectors = np.ascontiguousarray(vectors, np.float32)
     n, d = vectors.shape
     if spec.dim is not None and spec.dim != d:
@@ -107,69 +122,125 @@ def create(spec: IndexSpec, vectors: Optional[np.ndarray] = None,
             "IndexSpec(filters=True) needs per-row labels at create() "
             "(and labels need filters=True)")
     n_labels = int(labels.max()) + 1 if labels is not None else None
+    if prebuilt is not None and spec.tier in ("sharded", "tiered"):
+        raise ValueError("prebuilt graphs are single-store only — each "
+                         "shard/tier builds over its own row set")
     kw = dict(mode=spec.mode, vamana=spec.vamana(), n_bits=spec.n_bits,
               bucket_capacity=spec.bucket_capacity, pq_subspaces=spec.pq,
-              seed=spec.seed, capacity=n + spec.spare_capacity,
-              hop_backend=spec.hop_backend, device=dev)
-    if spec.tier == "disk":
-        from repro_torch.store.io_engine import DiskVectorSearchEngine
-        eng = DiskVectorSearchEngine(cache_frames=spec.cache_frames,
-                                     io=spec.io, store_path=spec.path, **kw)
+              seed=spec.seed, hop_backend=spec.hop_backend, device=dev)
+    if spec.tier in ("sharded", "tiered"):
+        from repro_torch.store.sharded_store import \
+            ShardedDiskVectorSearchEngine
+        from repro_torch.tiered import TieredVectorSearchEngine
+        if spec.tier == "tiered":
+            eng = TieredVectorSearchEngine(
+                store_dir=spec.path, cache_frames=spec.cache_frames,
+                n_shards=spec.n_shards, io=spec.io,
+                tiered=spec.tiered or TieredSpec(), **kw)
+            spec = dataclasses.replace(spec, tiered=eng.tiered)
+        else:
+            eng = ShardedDiskVectorSearchEngine(
+                store_dir=spec.path, n_shards=spec.n_shards,
+                cache_frames=spec.cache_frames, io=spec.io, **kw)
+        eng.build(vectors, labels=labels, n_labels=n_labels,
+                  spare_capacity=spec.spare_capacity)
     else:
-        eng = VectorSearchEngine(**kw)
-    eng.build(vectors, labels=labels, n_labels=n_labels, prebuilt=prebuilt)
-    db = Database(eng, spec, _caps(spec.tier, labels is not None))
+        from repro_torch.store.io_engine import DiskVectorSearchEngine
+        kw["capacity"] = n + spec.spare_capacity
+        if spec.tier == "disk":
+            eng = DiskVectorSearchEngine(cache_frames=spec.cache_frames,
+                                         io=spec.io, store_path=spec.path,
+                                         **kw)
+        else:
+            eng = VectorSearchEngine(**kw)
+        eng.build(vectors, labels=labels, n_labels=n_labels,
+                  prebuilt=prebuilt)
+    db = Database(eng, spec, _caps(spec.tier, labels is not None,
+                                   _host_views(spec.tier, eng)))
     db.warm()
     return db
 
 
 def open(path: str, *, mode: Optional[str] = None,
          spec: Optional[IndexSpec] = None, device="cuda") -> Database:
-    """Reopen the CTPL block file at ``path`` (see ``sniff``) on
+    """Reopen whatever is persisted at ``path`` (see ``sniff``) on
     ``device`` (the card by default; raises if there is none).
 
-    ``mode`` overrides the acceleration mode (default 'catapult').
+    ``mode`` overrides the acceleration mode (sharded and tiered
+    manifests record their own; a single file defaults to 'catapult').
     ``spec`` supplies the runtime-only knobs a reopen cares about —
     graph params for future upserts, cache size, I/O engine (None
-    resumes the persisted ``.io.json``), hop backend, serving defaults,
-    adapt policy, warm shapes; its tier/path fields are ignored in
-    favour of what is on disk.  An adapt sidecar resumes buckets,
-    telemetry and the utility-gate verdict; a keys sidecar restores the
-    caller-key map.  Sharded and tiered directories, and the streaming
-    ingest state of a database born empty, raise ``NotImplementedError``
-    before anything is opened.
+    resumes the persisted ``.io.json`` / manifest ``io``), hop backend,
+    serving defaults, adapt policy, warm shapes, a tiered layout's
+    ``TieredSpec`` (None resumes the persisted one); its tier/path
+    fields are ignored in favour of what is on disk.  Adapt sidecars
+    (``<store>.adapt.npz``, per-shard ``.buckets.npz`` and the
+    manifest's gate) resume buckets, telemetry and the utility-gate
+    verdict; a keys sidecar restores the caller-key map.  Persisted
+    streaming-ingest state raises ``NotImplementedError`` before
+    anything is opened.
     """
     dev = resolve_device(device)
     tier, _version = sniff(path)
-    if tier != "disk":
-        item = _SHARDED_ITEM if tier == "sharded" else _INGEST_ITEM
-        raise NotImplementedError(f"open() of a {tier} layout is not ported "
-                                  f"to repro_torch yet ({item})")
-    if os.path.exists(ingest_spec_path(tier, path)):
+    state = _keys_state(tier, path)
+    runtime = spec or IndexSpec()
+    # io=None means "no preference": the engine resumes the persisted
+    # IoSpec; an explicit runtime.io overrides it
+    kwargs = dict(vamana=runtime.vamana(), cache_frames=runtime.cache_frames,
+                  io=runtime.io, hop_backend=runtime.hop_backend, device=dev)
+    from repro_torch.store.io_engine import DiskVectorSearchEngine
+    from repro_torch.store.sharded_store import ShardedDiskVectorSearchEngine
+    from repro_torch.tiered import TieredVectorSearchEngine
+    if tier == "tiered":
+        eng = TieredVectorSearchEngine.load(path, mode=mode,
+                                            tiered=runtime.tiered, **kwargs)
+    elif tier == "sharded":
+        eng = ShardedDiskVectorSearchEngine.load(path, mode=mode, **kwargs)
+    else:
+        eng = DiskVectorSearchEngine.load(
+            path, mode=mode or "catapult", n_bits=runtime.n_bits,
+            bucket_capacity=runtime.bucket_capacity, seed=runtime.seed,
+            **kwargs)
+    # reflect what the engine restored (a manifest or an adapt sidecar
+    # may have overridden the runtime knobs): db.spec describes this
+    # index
+    opened = dataclasses.replace(
+        runtime, tier=tier, mode=eng.mode, path=path,
+        pq=getattr(eng, "pq_subspaces", runtime.pq),
+        filters=bool(eng.filtered), n_bits=eng.n_bits,
+        bucket_capacity=eng.bucket_capacity, seed=eng.seed,
+        n_shards=getattr(eng, "n_shards", runtime.n_shards), io=eng.io,
+        hop_backend=eng.hop_backend,
+        tiered=eng.tiered if tier == "tiered" else runtime.tiered)
+    keymap = KeyMap.from_arrays(state) if state is not None else None
+    db = Database(eng, opened, _caps(tier, eng.filtered,
+                                     _host_views(tier, eng)), keymap=keymap)
+    db.warm()
+    return db
+
+
+def _keys_state(tier: str, path: str) -> Optional[dict]:
+    """The persisted key-map arrays of ``path`` (None without any).
+    Raises ``NotImplementedError`` when ``path`` carries streaming-
+    ingest state: an ``IngestSpec`` (a sharded manifest's ``ingest``
+    entry, an ``ingest.json`` sidecar elsewhere) or the bootstrap
+    external-id indirection of a database born empty."""
+    if tier == "sharded":
+        from repro_torch.store.sharded_store import MANIFEST_NAME
+        with builtins.open(os.path.join(path, MANIFEST_NAME)) as f:
+            carries = "ingest" in json.load(f)
+        where = os.path.join(path, MANIFEST_NAME)
+    else:
+        where = ingest_spec_path(tier, path)
+        carries = os.path.exists(where)
+    if carries:
         raise NotImplementedError(
-            f"{ingest_spec_path(tier, path)!r} carries a streaming-ingest "
-            f"spec, which is not ported to repro_torch yet ({_INGEST_ITEM})")
+            f"{where!r} carries a streaming-ingest spec, which is not "
+            f"ported to repro_torch yet ({INGEST_ITEM})")
     state = read_ingest_state(ingest_state_path(tier, path))
     if state is not None and "ext2int" in state:
         raise NotImplementedError(
             f"{ingest_state_path(tier, path)!r} carries the bootstrap "
             f"external-id indirection of a database born empty, which is "
-            f"not ported to repro_torch yet ({_INGEST_ITEM})")
-    runtime = spec or IndexSpec()
-    from repro_torch.store.io_engine import DiskVectorSearchEngine
-    eng = DiskVectorSearchEngine.load(
-        path, mode=mode or "catapult", n_bits=runtime.n_bits,
-        bucket_capacity=runtime.bucket_capacity, seed=runtime.seed,
-        vamana=runtime.vamana(), cache_frames=runtime.cache_frames,
-        io=runtime.io, hop_backend=runtime.hop_backend, device=dev)
-    # reflect what the engine restored (an adapt sidecar may have
-    # overridden the runtime knobs): db.spec describes this index
-    opened = dataclasses.replace(
-        runtime, tier=tier, mode=eng.mode, path=path, pq=eng.pq_subspaces,
-        filters=bool(eng.filtered), n_bits=eng.n_bits,
-        bucket_capacity=eng.bucket_capacity, seed=eng.seed, io=eng.io,
-        hop_backend=eng.hop_backend)
-    keymap = KeyMap.from_arrays(state) if state is not None else None
-    db = Database(eng, opened, _caps(tier, eng.filtered), keymap=keymap)
-    db.warm()
-    return db
+            f"not ported to repro_torch yet ({INGEST_ITEM})")
+    return state

@@ -2,17 +2,19 @@
 
 Port of ``repro/db/spec.py``.  ``IndexSpec`` keeps the reference's
 fields and validation, so one spec reads the same in both packages.
-The port serves the RAM tier in every mode (``catapult``, ``diskann``,
-``lsh_apg``) and the single-store disk tier (``tier="disk"``, a CTPL
-block file at ``path``, its I/O engine configured by ``io=IoSpec()``)
-in ``catapult`` and ``diskann`` modes; at full precision or with PQ
-traversal (``pq=M``; the disk tier always traverses PQ), filtered
+The port serves every tier: RAM in every mode (``catapult``,
+``diskann``, ``lsh_apg``); the single-store disk tier (``tier="disk"``,
+a CTPL block file at ``path``, its I/O engine configured by
+``io=IoSpec()``), the sharded tier (``tier="sharded"``, ``n_shards``
+CTPL shards under a manifest directory) and the hot/cold tiered tier
+(``tier="tiered"``, configured by ``tiered=TieredSpec()``) in
+``catapult`` and ``diskann`` modes; at full precision or with PQ
+traversal (``pq=M``; the disk tiers always traverse PQ), filtered
 (``filters=True``) or not, with the adapt layer
-(``adapt=PolicyConfig(...)``, catapult mode) or without.  A spec asking
-for anything else raises ``CapabilityError`` naming, by title, the
-ROADMAP item that will bring it.  ``ingest``/``tiered`` keep their
-places but only take ``None`` for now (their spec types come with their
-tiers).
+(``adapt=PolicyConfig(...)``, catapult mode) or without.  ``ingest``
+keeps its place but only takes ``None``: streaming ingest raises
+``CapabilityError`` naming, by title, the ROADMAP item that will bring
+it.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.core.engine import SearchStats
 from repro_torch.core.vamana import VamanaParams
 
 TIERS = ("ram", "disk", "sharded", "tiered")
+COLD_TIERS = ("disk", "sharded")
 MODES = ("catapult", "diskann", "lsh_apg")
 HOP_BACKENDS = ("unfused", "fused")
 ADMISSION_POLICIES = ("clock", "locality")
@@ -100,12 +103,66 @@ class Caps(NamedTuple):
     host_views: bool = True  # db.vectors / db.tombstones available
 
 
+@dataclasses.dataclass(frozen=True)
+class TieredSpec:
+    """Hot/cold tiered-database configuration (``IndexSpec.tiered``).
+
+    The tiered tier serves a RAM ``VectorSearchEngine`` over the HOT
+    rows in front of a cold disk index holding the whole corpus (the
+    cold store is the canonical home of every row — global ids are cold
+    ids, so promotion/demotion never renumbers anything).
+
+    * ``hot_fraction``/``hot_capacity`` size the hot set: ``hot_capacity``
+      (rows) wins when set, else ``ceil(hot_fraction * n)`` at
+      ``create()``.
+    * ``cold_tier`` picks the cold backend: ``'disk'`` (one CTPL file)
+      or ``'sharded'`` (a manifest directory, ``IndexSpec.n_shards``).
+    * ``promote_top`` — hot buckets consulted per maintainer rebalance;
+      their live catapult destinations are the promotion candidates.
+    * ``demote_after`` — rebalances a hot row survives without
+      re-appearing in the candidate set before it is demotable.
+    * ``pin_cold`` — keep the hot rows tier-pinned in the cold cache so
+      the cold tier's block fetch path never pays disk reads for rows
+      the RAM tier already serves.
+
+    Persisted in the ``tiered.json`` manifest, so a plain ``open()``
+    resumes the layout the index was created with.
+    """
+    hot_fraction: float = 0.1
+    hot_capacity: Optional[int] = None
+    cold_tier: str = "disk"
+    promote_top: int = 16
+    demote_after: int = 2
+    pin_cold: bool = True
+
+    def __post_init__(self) -> None:
+        if not (0.0 < self.hot_fraction <= 1.0):
+            raise ValueError(f"tiered.hot_fraction must be in (0, 1], "
+                             f"got {self.hot_fraction}")
+        if self.hot_capacity is not None and self.hot_capacity < 1:
+            raise ValueError(f"tiered.hot_capacity must be >= 1, "
+                             f"got {self.hot_capacity}")
+        if self.cold_tier not in COLD_TIERS:
+            raise ValueError(f"tiered.cold_tier must be one of "
+                             f"{COLD_TIERS}, got {self.cold_tier!r}")
+        if self.promote_top < 1:
+            raise ValueError(f"tiered.promote_top must be >= 1, "
+                             f"got {self.promote_top}")
+        if self.demote_after < 1:
+            raise ValueError(f"tiered.demote_after must be >= 1, "
+                             f"got {self.demote_after}")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "TieredSpec":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
 # what the port lacks -> the ROADMAP queue 1 item (by title) that brings it
-_NOT_PORTED = {
-    "sharded": "ROADMAP queue 1, item 'Sharded tier'",
-    "tiered": "ROADMAP queue 1, item 'tiered/ and ingest/'",
-    "ingest": "ROADMAP queue 1, item 'tiered/ and ingest/'",
-}
+INGEST_ITEM = "ROADMAP queue 1, item 'ingest/'"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +197,7 @@ class IndexSpec:
     # disk tiers
     cache_frames: int = 2048
     n_shards: int = 2
-    tiered: Optional[object] = None
+    tiered: Optional[TieredSpec] = None
     io: Optional[IoSpec] = None
     ingest: Optional[object] = None
     hop_backend: str = "unfused"
@@ -174,18 +231,17 @@ class IndexSpec:
         if self.io is not None and not isinstance(self.io, IoSpec):
             raise ValueError(f"io must be an IoSpec (or None for the "
                              f"synchronous default), got {type(self.io)}")
+        if self.tiered is not None and not isinstance(self.tiered,
+                                                      TieredSpec):
+            raise ValueError(f"tiered must be a TieredSpec (or None for "
+                             f"the defaults), got {type(self.tiered)}")
         if self.hop_backend not in HOP_BACKENDS:
             raise ValueError(f"hop_backend must be one of {HOP_BACKENDS}, "
                              f"got {self.hop_backend!r}")
-        if self.tier in ("sharded", "tiered"):
+        if self.ingest is not None:
             raise CapabilityError(
-                f"IndexSpec.tier={self.tier!r} is not ported to repro_torch "
-                f"yet: {_NOT_PORTED[self.tier]}")
-        for name in ("ingest", "tiered"):
-            if getattr(self, name) is not None:
-                raise CapabilityError(
-                    f"IndexSpec.{name}={getattr(self, name)!r} is not ported "
-                    f"to repro_torch yet: {_NOT_PORTED[name]}")
+                f"IndexSpec.ingest={self.ingest!r} is not ported to "
+                f"repro_torch yet: {INGEST_ITEM}")
 
     def vamana(self) -> VamanaParams:
         return VamanaParams(max_degree=self.degree,

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -103,9 +104,18 @@ def build_all() -> Path:
     return out_dir
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built on first use."""
+    """The loaded library of kernel ``name``, built on first use (one
+    build and one load, whichever thread asks first)."""
+    with _LOAD_LOCK:
+        return _load(name)
+
+
+@functools.cache
+def _load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)

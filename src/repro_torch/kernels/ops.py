@@ -13,7 +13,8 @@ the tensors it was given:
 
 ``LAUNCHES`` counts kernel launches, one per wrapper call that launched
 (plain-version calls never count), so a run can show that its main path
-went through the kernels; callers reset it by assigning 0.
+went through the kernels; callers reset it by assigning 0.  The count
+takes a lock: the sharded and tiered tiers launch from pool threads.
 
 Each wrapper runs inside ``obs.profiler.annotate("repro_torch.kernels.
 <name>")``: a named ``torch.profiler`` range when profiling is on, a
@@ -23,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -32,6 +34,7 @@ from repro_torch.obs.profiler import annotate
 
 LAUNCHES = {"gather_distance": 0, "lsh_hash": 0, "fused_hop_l2": 0,
             "fused_hop_pq": 0, "pq_adc": 0, "l2_distance": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 # bucket tables hold 2**L rows and codes are non-negative int32
 MAX_LSH_BITS = 30
@@ -84,6 +87,11 @@ def _raise_on(rc: int, name: str) -> None:
                            f"{rc}")
 
 
+def _count(name: str) -> None:
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
+
+
 def _annotated(fn):
     """Run the wrapper ``fn`` inside its profiler range."""
     label = f"repro_torch.kernels.{fn.__name__}"
@@ -117,7 +125,7 @@ def gather_distance(vectors: torch.Tensor, ids: torch.Tensor,
         _ptr(vectors), _ptr(ids), _ptr(queries), _ptr(out), n, b, c, d,
         _stream(dev))
     _raise_on(rc, "gather_distance")
-    LAUNCHES["gather_distance"] += 1
+    _count("gather_distance")
     return out
 
 
@@ -143,7 +151,7 @@ def lsh_hash(queries: torch.Tensor, hyperplanes: torch.Tensor) -> torch.Tensor:
     rc = library("lsh_hash").launch_lsh_hash(
         _ptr(queries), _ptr(hyperplanes), _ptr(out), b, l, d, _stream(dev))
     _raise_on(rc, "lsh_hash")
-    LAUNCHES["lsh_hash"] += 1
+    _count("lsh_hash")
     return out
 
 
@@ -186,7 +194,7 @@ def fused_hop_l2(vectors, cand_ids, queries, beam_ids, beam_dists, beam_exp):
         _ptr(beam_dists), _ptr(beam_exp), _ptr(out_ids), _ptr(out_d),
         _ptr(out_exp), _ptr(out_nf), n, b, c, l, d, _stream(dev))
     _raise_on(rc, "fused_hop_l2")
-    LAUNCHES["fused_hop_l2"] += 1
+    _count("fused_hop_l2")
     return out_ids, out_d, out_exp, out_nf
 
 
@@ -234,7 +242,7 @@ def pq_adc(luts: torch.Tensor, codes: torch.Tensor,
         _ptr(luts), _ptr(codes), None if ids is None else _ptr(ids),
         _ptr(out), codes.shape[0], b, c, m, k, _stream(dev))
     _raise_on(rc, "pq_adc")
-    LAUNCHES["pq_adc"] += 1
+    _count("pq_adc")
     return out
 
 
@@ -281,7 +289,7 @@ def fused_hop_pq(luts, codes, cand_ids, beam_ids, beam_dists, beam_exp):
         _ptr(beam_dists), _ptr(beam_exp), _ptr(out_ids), _ptr(out_d),
         _ptr(out_exp), _ptr(out_nf), n, b, c, l, m, k, _stream(dev))
     _raise_on(rc, "fused_hop_pq")
-    LAUNCHES["fused_hop_pq"] += 1
+    _count("fused_hop_pq")
     return out_ids, out_d, out_exp, out_nf
 
 
@@ -309,5 +317,5 @@ def l2_distance(queries: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     rc = library("l2_distance").launch_l2_distance(
         _ptr(queries), _ptr(points), _ptr(out), b, c, d, _stream(dev))
     _raise_on(rc, "l2_distance")
-    LAUNCHES["l2_distance"] += 1
+    _count("l2_distance")
     return out

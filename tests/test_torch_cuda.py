@@ -772,3 +772,131 @@ def test_disk_serve_on_the_card_matches_the_cpu(dev, tmp_path):
     finally:
         card.close()
         cpu.close()
+
+
+@pytest.mark.parametrize("mode,hop_backend", [
+    ("catapult", "unfused"), ("catapult", "fused"), ("diskann", "unfused")])
+def test_sharded_database_on_the_card_matches_the_cpu(dev, tmp_path, mode,
+                                                      hop_backend):
+    """A sharded database created on the card against a CPU twin over a
+    copy of its directory: over two replayed rounds ids, distances, hops,
+    block reads and cache hits are equal; each search's shards launch
+    from the pool's threads, one ``lsh_hash`` a shard in catapult mode
+    and no ``gather_distance`` (the reranks are on the host)."""
+    import shutil
+    from repro_torch import db
+    vec, _, qs, _ = _labeled_corpus(43)
+    path = tmp_path / "card.d"
+    card = db.create(db.IndexSpec(tier="sharded", n_shards=3, degree=16,
+                                  build_beam=32, cache_frames=48, mode=mode,
+                                  hop_backend=hop_backend, path=str(path)),
+                     vec, device=dev)
+    shutil.copytree(path, tmp_path / "cpu.d")
+    cpu = db.open(str(tmp_path / "cpu.d"), spec=db.IndexSpec(
+        cache_frames=48, hop_backend=hop_backend), device="cpu")
+    try:
+        assert all(s.device == dev for s in card.backend.shards)
+        got = {"cuda": [], "cpu": []}
+        for name, d in (("cuda", card), ("cpu", cpu)):
+            for rnd in range(2):
+                for k in ops.LAUNCHES:
+                    ops.LAUNCHES[k] = 0
+                got[name].append(d.search(qs, k=10))
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES["gather_distance"] == 0
+                if name == "cuda":
+                    assert ops.LAUNCHES["lsh_hash"] == (
+                        3 if mode == "catapult" else 0)
+        for rnd, (a, b) in enumerate(zip(got["cuda"], got["cpu"])):
+            np.testing.assert_array_equal(a.ids, b.ids, f"round {rnd}")
+            assert a.dists.tobytes() == b.dists.tobytes(), rnd
+            for fld in ("hops", "block_reads", "cache_hits"):
+                np.testing.assert_array_equal(
+                    getattr(a.stats, fld), getattr(b.stats, fld),
+                    f"{fld}, round {rnd}")
+    finally:
+        card.close()
+        cpu.close()
+
+
+def test_mesh_search_on_the_card_matches_the_cpu(dev):
+    """The one-card mesh search (a (2, 4) mesh of virtual devices) from
+    one state on the card and on the CPU: ids, every device's bucket
+    table and step equal after each of three steps."""
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.beam_search import SearchSpec
+    vec, _, qs, _ = _labeled_corpus(47)
+    n = vec.shape[0] // 4 * 4
+    cpu = sh.build_sharded_state(vec[:n], n_shards=4, n_devices=8,
+                                 max_degree=12, lsh_bits=4, bucket_cap=8,
+                                 device="cpu")
+    card = sh.ShardedEngineState(*[t.to(dev) for t in cpu])
+    step = sh.make_sharded_search((2, 4), SearchSpec(12, 5, 64), n // 4, 4)
+    q = torch.as_tensor(qs[: qs.shape[0] // 2 * 2])
+    for rep in range(3):
+        card, a, _ = step(card, q.to(dev))
+        cpu, b, _ = step(cpu, q)
+        np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+        for name in ("bucket_ids", "bucket_stamp", "bucket_step"):
+            assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+    assert int(cpu.bucket_step.sum()) > 0
+
+
+@pytest.mark.parametrize("cold_tier", ["disk", "sharded"])
+def test_tiered_database_on_the_card_matches_the_cpu(dev, tmp_path,
+                                                     cold_tier):
+    """A tiered database created on the card and a CPU twin over a copy of
+    its directory, the card's hot graph put into the CPU twin after every
+    hot (re)build (a Vamana build on each side): with the maintainer
+    ticking, the hot gid sets and tier counters after every tick and the
+    cold block reads of every search are equal."""
+    import shutil
+    from repro_torch import db
+    from repro_torch.adapt import PolicyConfig
+    vec, _, qs, _ = _labeled_corpus(53)
+    spec = dict(degree=16, build_beam=32, cache_frames=48, n_bits=4,
+                bucket_capacity=8, n_shards=2,
+                adapt=PolicyConfig(observe_every=1, baseline_every=3,
+                                   min_batches=2, min_base=1))
+    path = tmp_path / "card.d"
+    card = db.create(db.IndexSpec(tier="tiered", path=str(path),
+                                  tiered=db.TieredSpec(
+                                      hot_fraction=0.05, promote_top=8,
+                                      demote_after=1, cold_tier=cold_tier),
+                                  **spec), vec, device=dev)
+    shutil.copytree(path, tmp_path / "cpu.d")
+    cpu = db.open(str(tmp_path / "cpu.d"), spec=db.IndexSpec(**spec),
+                  device="cpu")
+
+    def same_hot():
+        a, b = card.backend, cpu.backend
+        np.testing.assert_array_equal(a._hot_gid, b._hot_gid)
+        if a.hot is not None:
+            b.hot._adj_np[:] = a.hot._adj_np
+            b.hot._adj = b.hot._upload(b.hot._adj_np)
+            b.hot.medoid = a.hot.medoid
+
+    try:
+        same_hot()
+        ms = [card.attach_maintainer(), cpu.attach_maintainer()]
+        for rnd in range(4):
+            for lo in (0, 32):
+                q = qs[lo: lo + 32]
+                r = [d.search(q, k=5, beam_width=16) for d in (card, cpu)]
+                np.testing.assert_array_equal(r[0].stats.block_reads,
+                                              r[1].stats.block_reads)
+                for m, x in zip(ms, r):
+                    m.observe(q, x.stats)
+            rebuilds = card.backend.hot_rebuilds
+            for m in ms:
+                m.tick()
+            if card.backend.hot_rebuilds != rebuilds:
+                same_hot()
+            assert card.backend.tier_stats() == cpu.backend.tier_stats()
+            np.testing.assert_array_equal(card.backend._hot_live_gids(),
+                                          cpu.backend._hot_live_gids())
+        assert card.backend.promotions > 0
+        assert card.backend.hot.device == dev
+    finally:
+        card.close()
+        cpu.close()

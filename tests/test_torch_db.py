@@ -228,21 +228,32 @@ def test_public_constructors_default_to_the_card(build):
     ("tier", "sharded"), ("pq", 4), ("adapt", object()), ("tier", "tiered"),
     ("ingest", object()), ("tiered", object())])
 def test_unported_spec_fields_raise_capability_error(field, value):
-    """Every field this port lacks raises; ``pq`` and ``adapt`` are ported
-    on the RAM and disk tiers and raise only with a tier that is not
-    (through ``tier``)."""
+    """What this port lacks raises ``CapabilityError`` naming its ROADMAP
+    item: only ``ingest`` is left.  The sharded and tiered tiers are
+    accepted as the reference accepts them (``pq`` and ``adapt`` with
+    them too), and a ``tiered`` that is not a ``TieredSpec`` is refused
+    with the reference's ``ValueError``."""
     kw = {field: value}
+    if field == "ingest":
+        with pytest.raises(tdb.CapabilityError, match="ROADMAP") as err:
+            tdb.IndexSpec(**kw)
+        assert "'ingest/'" in str(err.value)
+        return
+    if field == "tiered":
+        for pkg in (jdb, tdb):
+            with pytest.raises(ValueError, match="TieredSpec"):
+                pkg.IndexSpec(tier="tiered", path="unused.d", **kw)
+        return
     if field in ("pq", "adapt"):
         assert getattr(tdb.IndexSpec(**kw), field) is value
         assert getattr(tdb.IndexSpec(tier="disk", path="unused.ctpl", **kw),
                        field) is value
-        kw.update(tier="sharded", path="unused.ctpl")
-    if field == "tier":
-        kw["path"] = "unused.ctpl"
-    with pytest.raises(tdb.CapabilityError, match="ROADMAP") as err:
-        tdb.IndexSpec(**kw)
-    if field in ("pq", "adapt"):
-        assert "IndexSpec.tier" in str(err.value)
+        kw["tier"] = "sharded"
+    kw["path"] = "unused.d"
+    got, want = tdb.IndexSpec(**kw), jdb.IndexSpec(**kw)
+    assert got.tier == want.tier and got.path == want.path
+    assert getattr(got, field) is value and got.tiered is None
+    assert got.n_shards == want.n_shards
 
 
 def test_spec_validation_matches_reference():

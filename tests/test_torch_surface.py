@@ -21,18 +21,15 @@ KEEP = "kept: every entry point of the port takes device="
 
 # port lines that differ from the reference's line of the same name
 DIFFERS = {
-    "IndexSpec": "tiered/ and ingest/",   # ingest/tiered typed as object
+    "IndexSpec": "ingest/",               # ingest typed as object
     "create": KEEP,
     "open": KEEP,
 }
 # reference names the port does not print
 MISSING = {
-    "IngestSpec": "tiered/ and ingest/",
-    "IngestSpec.from_dict": "tiered/ and ingest/",
-    "IngestSpec.to_dict": "tiered/ and ingest/",
-    "TieredSpec": "tiered/ and ingest/",
-    "TieredSpec.from_dict": "tiered/ and ingest/",
-    "TieredSpec.to_dict": "tiered/ and ingest/",
+    "IngestSpec": "ingest/",
+    "IngestSpec.from_dict": "ingest/",
+    "IngestSpec.to_dict": "ingest/",
 }
 
 def _by_name(text: str) -> dict[str, str]:
