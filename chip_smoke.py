@@ -80,15 +80,38 @@ then:
    sharded cold tier, and save / reopen; then the sharded tier at 1M x
    768 (4 shards of 250,000 rows over random regular graphs, catapult
    and diskann twins: scatter, merge and per-shard stage times, block
-   reads, idle share, device bytes).
+   reads, idle share, device bytes);
+7. in a third process on the card beside phases 2 to 5: streaming
+   ingest.  A database born empty at deployment width (``make_medrag_
+   zipf(d=768)``, degree 64, beam 16, ``PolicyConfig()``; its stream and
+   ``IngestSpec`` sizes cut and printed as ``reduced:``) served through
+   ``db.serve(max_batch=64, ingest=True)``, puts of 64 keyed rows in
+   turns with 64-query searches, beside a CPU twin that takes the card's
+   graph at each build: empty (all -1), seed (exact), the cutover, two
+   growth rebuilds, a keyed re-upsert, deletes by key past the 0.25
+   threshold and the maintainer's background consolidate, each stage on
+   its launch formula (``IngestSpy``), the twins equal in every ext id,
+   transition, key, search id and maintainer event, the streamed
+   recall@10 within a point of a batch twin's, then 4 producer threads
+   (distinct gids in caller order); the same on the disk, sharded (S=2)
+   and tiered tiers at bench width (``make_medrag_zipf``, d=24): stream,
+   ``save``, reopen on the card and on the CPU, continue with keyed
+   upserts and deletes, twins equal; then the baselines: ``HnswEngine``
+   over ``make_tripclick(n=4,000)``, plain against catapult over one
+   hierarchy, two passes each beside CPU twins, and a Proximity cache in
+   front of a database born empty at ``benchmarks/bench_dynamic.py``'s
+   settings, static and with inserts (the cached answers' recall beside
+   the database's; hits equal to a CPU twin cache's).
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
 after it; each path must show exactly the launches its batches imply
-(``expected_launches``, ``two_phase_launches``, ``serve_launches``; a
-masked search stays on the composed hop, insert searches and builds
-launch ``gather_distance`` alone, deletes and consolidates launch
-nothing, a maintainer's telemetry fold launches one ``lsh_hash`` and
+(``expected_launches``, ``two_phase_launches``, ``serve_launches``,
+``hnsw_launches``; a masked search stays on the composed hop, insert
+searches and builds launch ``gather_distance`` alone, deletes and
+consolidates launch nothing, a database born empty launches nothing
+until its cutover and its consolidate is a rebuild, a
+maintainer's telemetry fold launches one ``lsh_hash`` and
 its shadow and gated-off batches run the diskann path; a disk search
 launches no ``gather_distance``, its rerank being on the host; a
 sharded or tiered search launches, shard by shard and tier by tier,
@@ -163,6 +186,31 @@ TIER_POLICY = dict(observe_every=1, baseline_every=8, min_batches=4)
 TIER_TICK = 2
 DEPLOY_SHARDS = 4              # 250,000 rows a shard at 1M x 768
 DEPLOY_HOT = 1024              # the 1M tiered layout's hot_capacity
+# streaming ingest: a database born empty at deployment width (d=768,
+# degree 64), puts of 64 keyed rows in turns with 64-query searches.  Cut
+# from make_medrag_zipf(n=4,096) and IngestSpec()'s cutover 256 and
+# initial capacity 1,024 (printed as reduced:): every cutover, growth and
+# consolidate is a Vamana build and every put an insert, host
+# RobustPrune at d=768 (ingest_stats' cutover_ms/grow_ms); these sizes
+# still run every transition, two growths included
+INGEST_N = 448                 # make_medrag_zipf rows streamed
+INGEST = dict(bootstrap_cutover=128, initial_capacity=256, batch_size=64)
+INGEST_PUT = 64
+INGEST_REUPSERT = 128          # keys put again (true upserts)
+INGEST_DELETE = 0.3            # share of the keys then deleted by key
+INGEST_RECALL_Q = 1_024        # queries of the streamed-vs-batch recall
+INGEST_THREADS = 4             # producers of the threaded run, 2 puts each
+TWIN_PARTED = 0.02             # lanes of a d=768 step the twins may part on
+# ... and on the persisted tiers at bench width (d=24)
+TIER_INGEST_N = 1_792          # rows of make_medrag_zipf: streamed, then
+TIER_INGEST_MORE = 192         # these last ones upserted after the reopen
+TIER_INGEST = dict(bootstrap_cutover=128, initial_capacity=512,
+                   batch_size=64)
+HNSW_N = 4_000                 # make_tripclick rows under HnswEngine
+# benchmarks/bench_dynamic.py run()'s Proximity settings, on its d=24
+# Zipf workload
+PROX = dict(capacity=512, tau=2.0, k=5, batch=50, insert=250)
+PROX_N, PROX_Q = 2_048, 300
 
 
 class SmokeFailure(RuntimeError):
@@ -2354,6 +2402,814 @@ def deploy_tiered(tmp, disk_out, queries, paths, dev) -> dict:
     return out
 
 
+class SearchSpy:
+    """Records every ``beam_search_l2`` call made through ``modules``
+    (``core.vamana``'s build, ``core.insert``'s insert, ``core.hnsw``'s
+    levels): its loop iterations and its wall ms (each call ends with a
+    copy to the host).  Such a search is the composed full-precision
+    hop: ``gather_distance`` once for the init merge and once an
+    iteration, so ``expected()`` is ``expected_launches("diskann",
+    "unfused", iters)``.  Only searches on ``device_type`` are kept (a
+    CPU twin's builds launch nothing on the card).  Calls from pool
+    threads append under the interpreter lock."""
+
+    def __init__(self, *modules, device_type: str = "cuda"):
+        self.modules, self.iters, self.ms, self.where = modules, [], [], []
+        self.device_type = device_type
+
+    def __enter__(self):
+        self._real = [m.beam_search_l2 for m in self.modules]
+        for m, real in zip(self.modules, self._real):
+            def spy(*a, _real=real, _name=m.__name__, **kw):
+                t0 = time.perf_counter()
+                res = _real(*a, **kw)
+                if a[2].device.type == self.device_type:   # the queries
+                    self.iters.append(int(res.hops.max()))
+                    self.ms.append((time.perf_counter() - t0) * 1e3)
+                    self.where.append(_name)
+                return res
+            m.beam_search_l2 = spy
+        return self
+
+    def __exit__(self, *exc):
+        for m, real in zip(self.modules, self._real):
+            m.beam_search_l2 = real
+        return False
+
+    def expected(self) -> dict:
+        return expected_launches("diskann", "unfused", self.iters)
+
+
+def build_spy(device_type: str = "cuda") -> SearchSpy:
+    """The searches of every Vamana build (cutover, growth and
+    consolidate rebuilds) and of every graph-phase insert."""
+    from repro_torch.core import insert, vamana
+    return SearchSpy(vamana, insert, device_type=device_type)
+
+
+def hnsw_launches(mode: str, level_iters) -> dict:
+    """Kernel launches of one ``HnswEngine.search`` batch from the loop
+    iterations of its beam searches (each upper level's descent, then
+    level 0; ``SearchSpy(core.hnsw)``): each is the composed full-
+    precision hop (``gather_distance`` once plus once an iteration), and
+    catapult mode hashes the batch once (``lsh_hash``; the publish is
+    the host fold)."""
+    out = expected_launches("diskann", "unfused", level_iters)
+    out["lsh_hash"] += mode == "catapult"
+    return out
+
+
+class IngestSpy:
+    """Records what a database born empty ran, call by call: each
+    search's phase and launches (an empty or seeding database answers by
+    host numpy: no launch), the graph-phase searches' dispatch path and
+    loop iterations (the RAM tier), the maintainer's telemetry folds (one
+    ``lsh_hash`` each) and every build and insert search
+    (``build_spy``), all on ``device_type`` (a CPU twin's folds and
+    builds are not counted).  ``expected(hb)`` is their launches;
+    ``seed_launches`` the launches the empty and seed searches made."""
+
+    def __init__(self, backend, device_type: str = "cuda"):
+        self.eng, self.searches, self.folds = backend, [], 0
+        self.device_type = device_type
+        self.seed_launches = {}
+        self.builds = build_spy(device_type)
+
+    def __enter__(self):
+        from repro_torch.adapt import stats as ts
+        eng, real = self.eng, self.eng.search
+        self._ts, self._observe = ts, ts.observe_update
+
+        def search(*a, **kw):
+            phase = eng.bootstrap_phase
+            active = phase == "graph" and eng.inner.catapult_active
+            out, made = launches_of(lambda: real(*a, **kw))
+            if phase != "graph":
+                add_launches(self.seed_launches, made)
+            self.searches.append((phase, active, int(out[2].hops.max())))
+            return out
+
+        def observe(*a, **kw):
+            if a[2].device.type == self.device_type:       # the queries
+                self.folds += 1
+            return self._observe(*a, **kw)
+
+        eng.search = search
+        ts.observe_update = observe
+        self.builds.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.builds.__exit__(*exc)
+        del self.eng.search                 # the bound method again
+        self._ts.observe_update = self._observe
+        return False
+
+    def expected(self, hb: str) -> dict:
+        out = self.builds.expected()
+        for path, active in (("catapult", True), ("diskann", False)):
+            add_launches(out, expected_launches(
+                path, hb, [i for p, a, i in self.searches
+                           if p == "graph" and a == active]))
+        out["lsh_hash"] += self.folds
+        return out
+
+
+class CardGraphs:
+    """Hands each build of a CPU twin (``factory._build_engine`` on the
+    CPU) the graph its card twin built at the same step, as ``prebuilt``
+    (RAM tier): a Vamana build on the card and one on the CPU may part on
+    a near-tie of float sums, so the twins would otherwise compare two
+    graphs rather than one path.  The card twin runs each step first."""
+
+    def __enter__(self):
+        from repro_torch.db import factory
+        self._factory = factory
+        self._real = real = factory._build_engine
+        self.graphs, self.taken, self.card_ms = [], 0, 0.0
+
+        def build(spec, vectors, labels, n_labels, prebuilt=None, *,
+                  device="cuda"):
+            if torch.device(device).type == "cuda":
+                t0 = time.perf_counter()
+                eng = real(spec, vectors, labels, n_labels, prebuilt,
+                           device=device)
+                self.card_ms += (time.perf_counter() - t0) * 1e3
+                self.graphs.append((eng._adj_np.copy(), int(eng.medoid),
+                                    vectors.shape[0]))
+                return eng
+            check(self.graphs, "a CPU twin built with no card build before "
+                               "it")
+            adj, med, n = self.graphs.pop(0)
+            check(n == vectors.shape[0], f"CPU twin build of "
+                  f"{vectors.shape[0]} rows against the card's {n}")
+            self.taken += 1
+            return real(spec, vectors, labels, n_labels, (adj, med),
+                        device=device)
+
+        factory._build_engine = build
+        return self
+
+    def __exit__(self, *exc):
+        self._factory._build_engine = self._real
+        return False
+
+
+def twin_lanes_agree(a, b, tag: str) -> int:
+    """Card and CPU twins' (ids, dists) of one d=768 search: ids equal on
+    all but ``TWIN_PARTED`` of the lanes, distances within ``RTOL`` on the
+    equal lanes.  A 768-term sum in the kernel's order and in torch's can
+    differ in the last bit, and a bounded beam may then keep one of two
+    near-equal candidates on one side and the other on the other; such a
+    lane is counted, and the recall of the twins compared at the end
+    (the parity standard's near-tie rule).  Returns the parted lanes."""
+    same = (a[0] == b[0]).all(1)
+    check(np.allclose(a[1][same], b[1][same], rtol=RTOL),
+          f"{tag}: the twins' distances differ")
+    parted = int((~same).sum())
+    check(parted <= TWIN_PARTED * same.size,
+          f"{tag}: card and CPU twins' ids differ{lane_diff(a, b)}")
+    return parted
+
+
+def lane_diff(a, b) -> str:
+    """The lanes where two (ids, dists) results differ: count, and the
+    first lane's ids and distances on each side."""
+    bad = np.nonzero((a[0] != b[0]).any(1))[0]
+    if not bad.size:
+        return ""
+    i = int(bad[0])
+    return (f": {bad.size} lanes, first {i}: ids {a[0][i].tolist()} / "
+            f"{b[0][i].tolist()}, dists {a[1][i].tolist()} / "
+            f"{b[1][i].tolist()}")
+
+
+def ingest_twins_equal(card, cpu, tag: str) -> None:
+    """The twins' bootstrap state: phase, transitions, the external-id
+    indirection, tombstones and keys exactly equal."""
+    a, b = card.backend, cpu.backend
+    check((a.phase, a.cutovers, a.growths, a.capacity, a.n_active)
+          == (b.phase, b.cutovers, b.growths, b.capacity, b.n_active),
+          f"{tag}: card and CPU twins' transitions differ: "
+          f"{a.ingest_stats()} against {b.ingest_stats()}")
+    check(np.array_equal(a._ext_tomb, b._ext_tomb),
+          f"{tag}: the twins' tombstones differ")
+    if a.phase == "graph":
+        check(np.array_equal(a._ext2int, b._ext2int)
+              and np.array_equal(a._gen[1], b._gen[1]),
+              f"{tag}: the twins' ext2int/int2ext differ")
+    check(dict(card.keys._fwd) == dict(cpu.keys._fwd),
+          f"{tag}: the twins' keys differ")
+
+
+def ingest_spec(**ingest):
+    from repro_torch import db
+    from repro_torch.adapt import PolicyConfig
+    return db.IndexSpec(tier="ram", mode="catapult", dim=D, degree=64,
+                        beam_width=L, adapt=PolicyConfig(),
+                        ingest=db.IngestSpec(**ingest))
+
+
+def phase_ingest(dev) -> dict:
+    """A database born empty at deployment width: ``make_medrag_zipf(
+    n=INGEST_N, d=768)`` streamed into ``create(IndexSpec(dim=768,
+    degree=64, beam_width=16, adapt=PolicyConfig(), ingest=IngestSpec()))``
+    through ``db.serve(max_batch=64, ingest=True)`` from one thread, puts
+    of 64 keyed rows in turns with 64-query searches, on the card and on a
+    CPU twin (which takes the card's graph at each build, ``CardGraphs``):
+    empty, seed, the cutover, the growth rebuilds, a keyed re-upsert of
+    512 rows, deletes by key past the 0.25 threshold and the maintainer's
+    background consolidate; then the streamed recall against a batch
+    twin, and 4 producer threads on a fresh database."""
+    from repro_torch import db
+    from repro_torch.core import buckets as bk
+    from repro_torch.core.engine import recall_at_k
+    from repro_torch.data import make_medrag_zipf
+
+    wl = make_medrag_zipf(n=INGEST_N, d=D)
+    rows, qs = wl.corpus, wl.queries
+    check(INGEST_N % INGEST_PUT == 0, "the stream is whole puts")
+    print(f"reduced: the full-width ingest stream is make_medrag_zipf(n="
+          f"{INGEST_N}, d={D}) with IngestSpec({INGEST}) (4,096 rows and "
+          f"IngestSpec()'s cutover 256, initial capacity 1,024, batch 256 "
+          f"asked): every build and insert is host RobustPrune at d={D}; "
+          f"every transition runs", flush=True)
+    spec = ingest_spec(**INGEST)
+    out = {"stages": {}, "launches": {}}
+    card = db.create(spec)
+    twins = CardGraphs()
+    with twins:
+        cpu = db.create(spec, device="cpu")
+        fes = [card.serve(max_batch=SERVE_BATCH, ingest=True),
+               cpu.serve(max_batch=SERVE_BATCH, ingest=True)]
+        put_gids, step, parted = [[], []], [0], [0, 0]
+
+        def serve_step(put=None, keys=None):
+            """A put on both twins, then one 64-query search on both
+            (it pumps the put in); ids compared."""
+            tickets = [None, None]
+            if put is not None:
+                tickets = [fe.ingest.put(put, keys=keys) for fe in fes]
+            q = qs[(step[0] * SERVE_BATCH) % qs.shape[0]:][:SERVE_BATCH]
+            step[0] += 1
+            got = [fe.search(q, k=10) for fe in fes]
+            for t in tickets:       # a failed insert fails its ticket
+                if t is not None:
+                    t.wait(0.0)
+            parted[0] += twin_lanes_agree(got[0], got[1],
+                                          f"ingest step {step[0]}")
+            parted[1] += q.shape[0]
+            if card.backend.bootstrap_phase == "graph":
+                # one catapult table for the next step, where a near-tie
+                # flip published another top-1 (a no-op otherwise)
+                cpu.backend.inner._cat = dataclasses.replace(
+                    cpu.backend.inner._cat,
+                    buckets=bk.from_arrays(bk.to_arrays(
+                        card.backend.inner._cat.buckets), "cpu"))
+            ingest_twins_equal(card, cpu, f"ingest step {step[0]}")
+            return tickets, got[0][:2]
+
+        def stage(name, fn):
+            with IngestSpy(card.backend) as spy:
+                t0 = time.perf_counter()
+                res, made = counted(fn)
+                secs = time.perf_counter() - t0
+            want = spy.expected("unfused")
+            check(made == want, f"ingest {name}: launches {made} against "
+                                f"the formula {want}")
+            check(not any(spy.seed_launches.values()),
+                  f"ingest {name}: an empty or seed search launched "
+                  f"{spy.seed_launches}")
+            build_ms = float(sum(spy.builds.ms))
+            out["stages"][name] = dict(
+                seconds=secs, searches=len(spy.searches), folds=spy.folds,
+                build_searches=len(spy.builds.iters),
+                build_search_ms=build_ms,
+                vamana_search_ms=float(sum(
+                    ms for ms, w in zip(spy.builds.ms, spy.builds.where)
+                    if w.endswith(".vamana"))),
+                phases=sorted({p for p, _, _ in spy.searches}))
+            out["launches"][f"ingest_{name}"] = made
+            print(f"ingest {name}: {secs:.1f} s, {len(spy.searches)} "
+                  f"searches ({out['stages'][name]['phases']}), "
+                  f"{len(spy.builds.iters)} build/insert searches "
+                  f"({build_ms:.0f} ms), launches {made}", flush=True)
+            return res
+
+        def stream(lo, hi, src=rows):
+            """Puts of src[lo:hi] keyed by row index, one step each."""
+            for a in range(lo, hi, INGEST_PUT):
+                tickets, _ = serve_step(src[a: a + INGEST_PUT],
+                                        list(range(a, a + INGEST_PUT)))
+                for side in (0, 1):
+                    put_gids[side].append(tickets[side])
+
+        # empty: searches answer at once, all -1, no launch
+        def empty():
+            _, (ids, dists) = serve_step()
+            check((ids == -1).all() and np.isinf(dists).all(),
+                  "an empty database answered something")
+        stage("empty", empty)
+        check(card.backend.bootstrap_phase == "empty", "not empty")
+        # seed: exact brute force over the buffered rows
+        cut = card.spec.ingest.bootstrap_cutover
+        stage("seed", lambda: (stream(0, cut - INGEST_PUT), serve_step()))
+        check(card.backend.bootstrap_phase == "seed", "not seeding")
+        seed_n = cut - INGEST_PUT
+        truth = brute_force_knn_cuda(rows[:seed_n], qs[:SERVE_BATCH], 10,
+                                     dev)
+        g = np.concatenate([t.gids for t in put_gids[0]])
+        row_of = np.empty(seed_n, np.int64)
+        row_of[g] = np.arange(seed_n)
+        ids = card.search(qs[:SERVE_BATCH], k=10, publish=False).ids
+        check(np.array_equal(row_of[ids], truth),
+              "the seed phase's search is not exact brute force")
+        # the cutover, then growth until two rebuilds have run
+        stage("cutover", lambda: stream(cut - INGEST_PUT, cut + INGEST_PUT))
+        check(card.backend.cutovers == 1, "no cutover")
+        stage("grow", lambda: stream(cut + INGEST_PUT, INGEST_N))
+        # a keyed re-upsert of 512 rows (true upserts), noise added
+        rng = np.random.default_rng(5)
+        again = (rows[:INGEST_REUPSERT] + 0.05 * rng.standard_normal(
+            (INGEST_REUPSERT, D)).astype(np.float32))
+
+        stage("reupsert", lambda: stream(0, INGEST_REUPSERT, again))
+        check(card.backend.growths >= 2,
+              f"only {card.backend.growths} growth rebuilds")
+        check(not fes[0].ingest.depth and not fes[1].ingest.depth,
+              "puts left in the queue")
+        ingest_twins_equal(card, cpu, "after the re-upsert")
+        # every ticket resolved, in caller order, on both twins
+        for side in (0, 1):
+            gids = np.concatenate([t.gids for t in put_gids[side]])
+            check(len(np.unique(gids)) == gids.size,
+                  "two puts got the same gid")
+            if side == 0:
+                card_gids = gids
+            else:
+                check(np.array_equal(gids, card_gids),
+                      "the twins' ticket gids differ")
+        put_rows = np.concatenate([rows, again])
+        live = ~card.tombstones[card_gids]
+        check(live.sum() == INGEST_N and live[INGEST_N:].all()
+              and np.array_equal(card.vectors[card_gids[live]],
+                                 put_rows[live]),
+              "db.vectors[gids] is not the rows that were put (or a "
+              "replaced row is live)")
+        # deletes by key past the threshold, then searches until the
+        # maintainer's tick consolidates
+        n_del = int(np.ceil(INGEST_DELETE * INGEST_N))
+        dead_keys = list(range(INGEST_N - n_del, INGEST_N))
+
+        def delete_and_consolidate():
+            for d in (card, cpu):
+                d.delete(keys=dead_keys)
+            frac = card.backend.tombstone_fraction()
+            check(frac >= card.spec.ingest.consolidate_threshold,
+                  f"tombstone fraction {frac:.3f} under the threshold")
+            for _ in range(4 * card.spec.adapt_tick_every):
+                serve_step()
+                if fes[0].maintainer.consolidations:
+                    break
+            return frac
+        t0 = time.perf_counter()
+        frac = stage("consolidate", delete_and_consolidate)
+        check(fes[0].maintainer.consolidations >= 1
+              and fes[1].maintainer.consolidations
+              == fes[0].maintainer.consolidations,
+              "the maintainer did not consolidate (or the twins differ)")
+        check(card.backend.tombstone_fraction()
+              < card.spec.ingest.consolidate_threshold,
+              "consolidate left the tombstones")
+        consolidate_s = time.perf_counter() - t0
+        snap = [fe.maintainer.snapshot() for fe in fes]
+        for key in ADAPT_EVENTS + ("consolidations", "n_queries"):
+            check(snap[0][key] == snap[1][key],
+                  f"maintainer {key}: card {snap[0][key]} CPU {snap[1][key]}")
+        stats = card.backend.ingest_stats()
+        out.update(stats=stats, twin_builds=twins.taken,
+                   card_build_ms=getattr(twins, "card_ms", 0.0),
+                   maintainer=snap[0], delete_fraction=frac,
+                   consolidate_s=consolidate_s, parted_lanes=parted[0],
+                   lanes=parted[1])
+    # recall against brute force over the live rows, beside a batch twin
+    live = np.nonzero(~card.tombstones)[0]
+    q_eval = qs[: INGEST_RECALL_Q]
+    truth = live[brute_force_knn_cuda(card.vectors[live], q_eval, 10, dev)]
+    ids = card.search(q_eval, k=10, publish=False).ids
+    check(not np.isin(ids, np.nonzero(card.tombstones)[0]).any(),
+          "a tombstoned id came back")
+    r_stream = recall_at_k(ids, truth)
+    r_cpu = recall_at_k(cpu.search(q_eval, k=10, publish=False).ids, truth)
+    check(abs(r_cpu - r_stream) <= 0.01, f"card recall@10 {r_stream:.4f} "
+          f"against the CPU twin's {r_cpu:.4f}")
+    t0 = time.perf_counter()
+    twin = db.create(dataclasses.replace(spec, ingest=None, adapt=None),
+                     card.vectors[live])
+    twin_s = time.perf_counter() - t0
+    r_batch = recall_at_k(live[twin.search(q_eval, k=10).ids], truth)
+    check(r_stream >= r_batch - 0.01, f"streamed recall@10 {r_stream:.4f} "
+          f"more than a point under the batch twin's {r_batch:.4f}")
+    del twin
+    build_ms = sum(out["stages"][s]["build_search_ms"]
+                   for s in out["stages"])
+    vamana_ms = sum(out["stages"][s]["vamana_search_ms"]
+                    for s in out["stages"])
+    # the card's Vamana builds (cutover, growths, consolidate) outside
+    # their searches on the card: host RobustPrune and graph surgery
+    check(out["card_build_ms"] > 0, "no card build was timed")
+    host_share = 1.0 - vamana_ms / out["card_build_ms"]
+    out.update(recall_stream=r_stream, recall_batch=r_batch,
+               recall_cpu_twin=r_cpu, batch_twin_s=twin_s,
+               live=int(live.size), build_host_share=host_share)
+    print(f"ingest: cutover {stats['cutover_ms']:.0f} ms, {stats['growths']}"
+          f" growths {stats['grow_ms']:.0f} ms, consolidate phase "
+          f"{consolidate_s:.1f} s; the card's builds "
+          f"{out['card_build_ms']:.0f} ms, their searches on the card "
+          f"{vamana_ms:.0f} ms (host share {host_share:.4f}); build and insert "
+          f"searches {build_ms:.0f} ms in all; recall@10 streamed "
+          f"{r_stream:.4f} "
+          f"batch twin {r_batch:.4f} ({live.size} live rows, twin build "
+          f"{twin_s:.1f} s); CPU twin took {twins.taken} card graphs, its "
+          f"recall@10 {r_cpu:.4f}, {parted[0]} of {parted[1]} served lanes "
+          f"parted on a near-tie", flush=True)
+    out["threads"] = ingest_threads(rows)
+    return out
+
+
+def ingest_threads(rows) -> dict:
+    """4 producer threads put 2 x 32 rows each into a fresh database born
+    empty while the main thread serves (the puts cross its cutover):
+    every gid distinct, each ticket in its caller's row order."""
+    import threading
+    from repro_torch import db
+    d = db.create(ingest_spec(**INGEST))
+    fe = d.serve(max_batch=SERVE_BATCH, ingest=True)
+    tickets, put = {}, INGEST_PUT // 2
+
+    def producer(p):
+        for j in range(2):
+            lo = (2 * p + j) * put
+            tickets[lo] = fe.ingest.put(rows[lo: lo + put])
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=producer, args=(p,))
+               for p in range(INGEST_THREADS)]
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads) or fe.ingest.depth:
+        fe.search(rows[:SERVE_BATCH], k=10)
+    for t in threads:
+        t.join()
+    fe.ingest.flush()
+    secs = time.perf_counter() - t0
+    gids = np.concatenate([tickets[lo].gids for lo in sorted(tickets)])
+    n = 2 * INGEST_THREADS * put
+    check(len(np.unique(gids)) == n, "threaded puts shared a gid")
+    check(np.array_equal(d.vectors[gids], rows[:n]),
+          "a threaded ticket's gids are not in its caller's order")
+    print(f"ingest threads: {INGEST_THREADS} producers, {n} rows in "
+          f"{secs:.1f} s, gids distinct and in caller order", flush=True)
+    return dict(rows=n, seconds=secs)
+
+
+def phase_ingest_tiers(dev) -> dict:
+    """Databases born empty on the persisted tiers at bench width: the
+    rows of ``make_medrag_zipf(n=TIER_INGEST_N)`` (d=24) streamed in
+    keyed puts of 64 with ``IngestSpec(bootstrap_cutover=128,
+    initial_capacity=512, batch_size=64)`` on ``disk``, ``sharded`` (S=2)
+    and ``tiered`` (over a disk cold tier), on the card (launches at the
+    build formula); then ``save``, and a copy opened on the card and one
+    on the CPU (its hot graph, on the tiered tier, the card's), which
+    continue with keyed upserts, re-upserts and deletes by key, no
+    rebuild: ext ids and keys survive the reopen and the twins are equal
+    in every id, hop and block read."""
+    from repro_torch import db
+    from repro_torch.data import make_medrag_zipf
+    from repro_torch.ingest import BootstrapEngine
+
+    wl = make_medrag_zipf(n=TIER_INGEST_N, n_queries=4 * TIER_BATCH)
+    rows, qs = wl.corpus, wl.queries
+    head = TIER_INGEST_N - TIER_INGEST_MORE
+    out = {"launches": {}}
+    check(head % 64 == 0, "the persisted tiers' stream is whole puts")
+    for tier in ("disk", "sharded", "tiered"):
+        tmp = tempfile.mkdtemp(prefix=f"ingest_{tier}_")
+        opened = []
+        try:
+            path = os.path.join(tmp, "born")
+            spec = db.IndexSpec(tier=tier, path=path, dim=rows.shape[1],
+                                n_shards=2, cache_frames=TIER_FRAMES,
+                                ingest=db.IngestSpec(**TIER_INGEST))
+            d = db.create(spec)
+            opened.append(d)
+            t0 = time.perf_counter()
+            with build_spy() as spy:
+                _, stream_made = counted(lambda: [
+                    d.upsert(rows[a: a + 64], keys=list(range(a, a + 64)))
+                    for a in range(0, head, 64)])
+            check(stream_made == spy.expected(), f"ingest {tier} stream: "
+                  f"launches {stream_made} against the build formula "
+                  f"{spy.expected()}")
+            stream_s = time.perf_counter() - t0
+            st = d.backend.ingest_stats()
+            check(st["cutovers"] == 1 and st["growths"] >= 2,
+                  f"ingest {tier}: transitions {st}")
+            check(st["capacity"] - d.n_active >= TIER_INGEST_MORE + 64,
+                  f"ingest {tier}: no room to continue without a rebuild")
+            ext2int = d.backend._ext2int.copy()
+            keys = dict(d.keys._fwd)
+            d.save()
+            d.close()
+            opened.remove(d)
+            twins = []
+            for name, where in (("card", "cuda"), ("cpu", "cpu")):
+                p = os.path.join(tmp, name)
+                (shutil.copytree if os.path.isdir(path) else copy_store)(
+                    path, p)
+                if not os.path.isdir(path):
+                    for suffix in (".keys.npz", ".ingest.json"):
+                        shutil.copy(path + suffix, p + suffix)
+                twins.append(db.open(p, device=where))
+                opened.append(twins[-1])
+            card, cpu = twins
+            for t in twins:
+                check(isinstance(t.backend, BootstrapEngine)
+                      and np.array_equal(t.backend._ext2int, ext2int)
+                      and dict(t.keys._fwd) == keys
+                      and t.spec.ingest == spec.ingest,
+                      f"ingest {tier}: ext ids, keys or the ingest spec "
+                      f"did not survive the reopen")
+            if tier == "tiered":
+                th, ch = cpu.backend.inner.hot, card.backend.inner.hot
+                th._adj_np[:] = ch._adj_np
+                th._adj = th._upload(th._adj_np)
+                th.medoid = int(ch.medoid)
+            inner = card.backend.inner
+            units = list(getattr(inner, "shards", None) or [inner])
+            more = rows[head:]
+            rng = np.random.default_rng(7)
+            again = rows[:64] + 0.05 * rng.standard_normal(
+                (64, rows.shape[1])).astype(np.float32)
+
+            def cont(t):
+                new = t.upsert(more, keys=list(range(head, TIER_INGEST_N)))
+                t.upsert(again, keys=list(range(64)))
+                t.delete(keys=list(range(64, 192)))
+                res = [t.search(qs[a: a + TIER_BATCH], k=TIER_K)
+                       for a in range(0, qs.shape[0], TIER_BATCH)]
+                return new, res
+
+            with PathSpy(units, inner if tier == "tiered" else None) as ps, \
+                    build_spy() as bs:
+                (new, res), made = counted(lambda: cont(card))
+            want = add_launches(ps.expected("unfused"), bs.expected())
+            check(made == want, f"ingest {tier} after the reopen: launches "
+                  f"{made} against {want}")
+            new_cpu, res_cpu = cont(cpu)
+            check(np.array_equal(new, new_cpu), f"ingest {tier}: the twins' "
+                  f"gids differ after the reopen")
+            check(int(new.min()) == int(ext2int.size),
+                  f"ingest {tier}: ext ids did not continue")
+            check(all(np.array_equal(a.ids, b.ids)
+                      and np.array_equal(a.stats.hops, b.stats.hops)
+                      and np.array_equal(a.stats.block_reads,
+                                         b.stats.block_reads)
+                      for a, b in zip(res, res_cpu)),
+                  f"ingest {tier}: card and CPU twins differ after the "
+                  f"reopen")
+            check(card.backend.growths == card.backend.cutovers == 0,
+                  f"ingest {tier}: the continuation rebuilt")
+            ingest_twins_equal(card, cpu, f"ingest {tier}")
+            dead = np.nonzero(card.backend._ext_tomb)[0]
+            check(not np.isin(np.concatenate([r.ids for r in res]),
+                              dead).any(),
+                  f"ingest {tier}: a tombstoned id came back")
+            out[tier] = dict(stream_s=stream_s, stats=st,
+                             rows=int(card.backend.ext_rows),
+                             reads=float(np.mean([r.stats.block_reads.mean()
+                                                  for r in res])))
+            out["launches"][f"{tier}_stream"] = stream_made
+            out["launches"][f"{tier}_reopen"] = made
+            print(f"ingest {tier}: streamed {head} rows in {stream_s:.1f} s "
+                  f"(cutover {st['cutover_ms']:.0f} ms, {st['growths']} "
+                  f"growths {st['grow_ms']:.0f} ms), reopened on the card "
+                  f"and the CPU, {TIER_INGEST_MORE} more rows, 64 "
+                  f"re-upserts, 128 deletes: twins equal, "
+                  f"{out[tier]['reads']:.2f} block reads a query",
+                  flush=True)
+        finally:
+            for t in opened:
+                t.close()
+            shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def phase_baselines(dev) -> dict:
+    """The paper's two baselines on the card.  ``HnswEngine`` over
+    ``make_tripclick(n=HNSW_N)`` (built once, shared by a plain and a
+    catapult engine), two passes of the queries in batches of 256: hops
+    and recall@10 beside CPU twins over the same hierarchy and planes
+    (ids and hops equal); each batch at ``hnsw_launches``.  Then a
+    Proximity cache in front of a database born empty, at
+    ``benchmarks/bench_dynamic.py``'s settings (capacity 512, tau 2.0,
+    k=5, batches of 50, inserts of 250 every 50 queries) on its d=24
+    Zipf workload, static and dynamic: the cached answers' recall beside
+    the live database's, and hits, ids and stamps equal to a CPU twin
+    cache fed the same queries and database answers."""
+    from repro_torch import convert, db
+    from repro_torch.core import buckets as bk
+    from repro_torch.core import hnsw
+    from repro_torch.core.engine import recall_at_k
+    from repro_torch.core.lsh import LSHParams
+    from repro_torch.data import make_tripclick
+
+    out = {"launches": {}}
+    wl = make_tripclick(n=HNSW_N)
+    truth = brute_force_knn_cuda(wl.corpus, wl.queries, 10, dev)
+    t0 = time.perf_counter()
+    with build_spy() as spy:
+        cat, made = counted(lambda: hnsw.HnswEngine(
+            mode="catapult", device=dev).build(wl.corpus,
+                                               db.IndexSpec().vamana()))
+    check(made == spy.expected(), f"HNSW build launches {made} against "
+          f"{spy.expected()}")
+    build_s = time.perf_counter() - t0
+    out["launches"]["hnsw_build"] = made
+    plain = hnsw.HnswEngine(mode="plain", device=dev)
+    plain.index = cat.index
+    ix = cat.index
+    cpu_ix = convert.hnsw_index_from_numpy(
+        ix.vectors.cpu().numpy(), ix.level_ids,
+        [a.cpu().numpy() for a in ix.level_adj], ix.base_adj.cpu().numpy(),
+        ix.entry, device="cpu")
+    twins = {}
+    for mode in ("plain", "catapult"):
+        t = hnsw.HnswEngine(mode=mode, device="cpu")
+        t.index = cpu_ix
+        t._lsh = LSHParams(hyperplanes=cat._lsh.hyperplanes.cpu())
+        t._buckets = bk.make_buckets(2 ** t.n_bits, t.bucket_capacity,
+                                     device="cpu")
+        twins[mode] = t
+    res = {}
+    for mode, eng in (("plain", plain), ("catapult", cat)):
+        per_pass = []
+        for rnd in range(2):
+            with SearchSpy(hnsw) as hs:
+                ids, made = counted(lambda: [
+                    eng.search(wl.queries[a: a + 256], k=10, beam_width=L)
+                    for a in range(0, wl.queries.shape[0], 256)])
+            n_b = len(ids)
+            per = len(hs.iters) // n_b
+            want = expected_launches("diskann", "unfused", [])
+            for b in range(n_b):
+                add_launches(want, hnsw_launches(
+                    mode, hs.iters[b * per: (b + 1) * per]))
+            check(made == want, f"HNSW {mode} pass {rnd + 1}: launches "
+                  f"{made} against {want}")
+            out["launches"][f"hnsw_{mode}_pass{rnd + 1}"] = made
+            got = np.concatenate([r[0] for r in ids])
+            hops = np.concatenate([r[2]["hops"] for r in ids])
+            cpu = [twins[mode].search(wl.queries[a: a + 256], k=10,
+                                      beam_width=L)
+                   for a in range(0, wl.queries.shape[0], 256)]
+            check(np.array_equal(got, np.concatenate([r[0] for r in cpu]))
+                  and np.array_equal(hops, np.concatenate(
+                      [r[2]["hops"] for r in cpu])),
+                  f"HNSW {mode} pass {rnd + 1}: card and CPU twins differ")
+            per_pass.append(dict(hops=float(hops.mean()),
+                                 recall=recall_at_k(got, truth),
+                                 used=float(np.concatenate(
+                                     [r[2]["used"] for r in ids]).mean())))
+        res[mode] = per_pass
+    check(res["catapult"][1]["hops"] < res["plain"][1]["hops"]
+          and res["catapult"][1]["recall"] >= res["plain"][1]["recall"]
+          - 0.01, f"catapults over HNSW: {res}")
+    out["hnsw"] = dict(build_s=build_s, passes=res,
+                       levels=[len(i) for i in ix.level_ids])
+    print(f"hnsw: build {build_s:.1f} s, levels {out['hnsw']['levels']}; "
+          + "; ".join(f"{m} pass {i + 1} hops {p['hops']:.2f} recall@10 "
+                      f"{p['recall']:.4f}" for m, ps in res.items()
+                      for i, p in enumerate(ps)) + "; CPU twins equal",
+          flush=True)
+    t0 = time.perf_counter()
+    out["proximity"] = proximity(dev)
+    out["proximity"]["seconds"] = time.perf_counter() - t0
+    out["launches"].update(out["proximity"].pop("launches"))
+    return out
+
+
+def phase_ingest_all(dev) -> dict:
+    """This slice's phases: streaming ingest at deployment width, on the
+    persisted tiers, and the two baselines."""
+    out = {}
+    for name, fn in (("ingest", phase_ingest),
+                     ("ingest_tiers", phase_ingest_tiers),
+                     ("baselines", phase_baselines)):
+        t0 = time.perf_counter()
+        out[name] = fn(dev)
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"phase {name}: {out[name]['seconds']:.1f} s", flush=True)
+    return out
+
+
+def proximity(dev) -> dict:
+    """The Fig. 2 contrast at ``bench_dynamic.run``'s settings: a
+    database born empty takes the rows of ``make_medrag_zipf(n=PROX_N,
+    d=24)`` (upserts of 256); a Proximity cache in front of it serves a
+    hit verbatim and sends misses to the database.  A static replay
+    (fresh cache, no inserts), then a dynamic one (fresh cache, 250 rows
+    near the stream's queries upserted before every batch of 50 after the
+    first): median recall of the served answers beside the database's
+    own, against brute force over the live rows.  A CPU twin cache gets
+    the same queries and database answers: hits, ids and stamps equal
+    after every batch.  The cache launches nothing; the database's
+    searches and inserts are on ``IngestSpy``'s formula."""
+    from repro_torch import db
+    from repro_torch.core import proximity_cache as pc
+    from repro_torch.core.engine import recall_at_k
+    from repro_torch.data import make_medrag_zipf
+
+    cfg = PROX
+    wl = make_medrag_zipf(n=PROX_N, n_queries=PROX_Q)
+    d = db.create(db.IndexSpec(dim=wl.corpus.shape[1],
+                               ingest=db.IngestSpec()))
+    t0 = time.perf_counter()
+    for a in range(0, PROX_N, 256):
+        d.upsert(wl.corpus[a: a + 256])
+    stream_s = time.perf_counter() - t0
+    rng = np.random.default_rng(9)
+    out = {"stream_s": stream_s, "launches": {}}
+    for dynamic in (False, True):
+        caches = [pc.make_cache(cfg["capacity"], wl.corpus.shape[1],
+                                cfg["k"], device=where)
+                  for where in (dev, "cpu")]
+        rec_cache, rec_db, hits = [], [], 0
+
+        def replay():
+            nonlocal caches, hits
+            for i, a in enumerate(range(0, PROX_Q, cfg["batch"])):
+                q = wl.queries[a: a + cfg["batch"]]
+                if dynamic and i > 0:
+                    centers = q[rng.integers(0, q.shape[0],
+                                             cfg["insert"])]
+                    d.upsert(centers + 0.05 * rng.standard_normal(
+                        centers.shape).astype(np.float32))
+                hit = [pc.cache_probe(
+                    c, torch.as_tensor(q, device=c.keys.device), cfg["tau"])
+                    for c in caches]
+                ids_db = d.search(q, k=cfg["k"],
+                                  beam_width=2 * cfg["k"]).ids
+                h = hit[0].hit.cpu().numpy()
+                check(np.array_equal(h, hit[1].hit.numpy())
+                      and np.array_equal(hit[0].ids.cpu().numpy()[h],
+                                         hit[1].ids.numpy()[h]),
+                      "Proximity: card and CPU caches' hits differ")
+                hits += int(h.sum())
+                served = np.where(h[:, None], hit[0].ids.cpu().numpy(),
+                                  ids_db)
+                caches = [pc.cache_insert(
+                    c, torch.as_tensor(q, device=c.keys.device),
+                    torch.as_tensor(ids_db, device=c.keys.device),
+                    torch.as_tensor(~h, device=c.keys.device))
+                    for c in caches]
+                check(np.array_equal(caches[0].stamp.cpu().numpy(),
+                                     caches[1].stamp.numpy())
+                      and np.array_equal(caches[0].values.cpu().numpy(),
+                                         caches[1].values.numpy())
+                      and caches[0].step == caches[1].step,
+                      "Proximity: card and CPU caches' stamps differ")
+                truth = brute_force_knn_cuda(d.vectors, q, cfg["k"], dev)
+                for row in range(q.shape[0]):
+                    rec_cache.append(recall_at_k(served[row: row + 1],
+                                                 truth[row: row + 1]))
+                    rec_db.append(recall_at_k(ids_db[row: row + 1],
+                                              truth[row: row + 1]))
+
+        tag = "dynamic" if dynamic else "static"
+        with IngestSpy(d.backend) as spy:
+            _, made = counted(replay)
+        want = spy.expected("unfused")
+        check(made == want, f"Proximity {tag}: launches {made} against "
+                            f"{want}")
+        out["launches"][f"proximity_{tag}"] = made
+        out[tag] = dict(cache_median_recall=float(np.median(rec_cache)),
+                        db_median_recall=float(np.median(rec_db)),
+                        cache_mean_recall=float(np.mean(rec_cache)),
+                        db_mean_recall=float(np.mean(rec_db)), hits=hits,
+                        rows=int(d.backend.ext_rows))
+        print(f"proximity {tag}: cached answers median recall "
+              f"{out[tag]['cache_median_recall']:.3f} (mean "
+              f"{out[tag]['cache_mean_recall']:.3f}), the live database "
+              f"{out[tag]['db_median_recall']:.3f} (mean "
+              f"{out[tag]['db_mean_recall']:.3f}); {hits} hits of {PROX_Q}"
+              f" (CPU twin equal); {out[tag]['rows']} rows", flush=True)
+    check(out["dynamic"]["cache_mean_recall"]
+          < out["dynamic"]["db_mean_recall"],
+          "the cache did not go stale under insertion")
+    return out
+
+
 def tier_process(seed: int, dev) -> dict:
     """The second process's work: ``phase_tiers``, then the sharded tier
     at 1,000,000 x 768 (``deploy_sharded``) over the deployment table,
@@ -3252,17 +4108,20 @@ class ShiftGraph:
 
 
 class TierPhases:
-    """The sharded, mesh and tiered phases at bench size and the sharded
-    tier at 1M x 768 (``tier_process``) in a second process on the card,
-    started after phase 1 (so no kernel timing overlaps it) beside phases
-    2 to 5: its sharded and tiered builds are minutes of host
-    RobustPrune, and its 1M shard searches minutes of host fetch; run in
-    turn they would push the run past its time limit.  Its own launch
-    counts come back in its JSON.  ``result()`` waits for it, prints its
-    log and reads the JSON; leaving the ``with`` stops it."""
+    """A second process on the card, started after phase 1 (so no kernel
+    timing overlaps it) beside phases 2 to 5: ``--tiers`` runs the
+    sharded, mesh and tiered phases at bench size and the sharded tier at
+    1M x 768 (``tier_process``; its sharded and tiered builds are minutes
+    of host RobustPrune, its 1M shard searches minutes of host fetch),
+    and ``--ingest`` (a third process) this slice's ingest and baseline
+    phases (``phase_ingest_all``; every cutover, growth and consolidate
+    is a Vamana rebuild, host RobustPrune again); run in turn they would
+    push the run past its time limit.  Each one's launch counts come
+    back in its JSON.  ``result()`` waits for it, prints its log and
+    reads the JSON; leaving the ``with`` stops it."""
 
-    def __init__(self, path: Path):
-        self.path, self.proc, self.log = path, None, None
+    def __init__(self, path: Path, flag: str = "--tiers"):
+        self.path, self.flag, self.proc, self.log = path, flag, None, None
 
     def __enter__(self):
         return self
@@ -3270,7 +4129,7 @@ class TierPhases:
     def start(self) -> None:
         self.log = open(self.path.with_suffix(".log"), "w")
         self.proc = subprocess.Popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--tiers",
+            [sys.executable, str(ROOT / "chip_smoke.py"), self.flag,
              str(self.path)], stdout=self.log, stderr=subprocess.STDOUT)
 
     def result(self) -> dict:
@@ -3278,9 +4137,10 @@ class TierPhases:
         rc = self.proc.wait()
         self.log.close()
         print(self.path.with_suffix(".log").read_text(), end="", flush=True)
-        print(f"tier phases: waited {time.perf_counter() - t0:.1f} s for "
-              f"the second process", flush=True)
-        check(rc == 0, f"the tier phases' process exited {rc}")
+        print(f"{self.flag[2:]} phases: waited "
+              f"{time.perf_counter() - t0:.1f} s for their process",
+              flush=True)
+        check(rc == 0, f"the {self.flag[2:]} phases' process exited {rc}")
         return json.loads(self.path.read_text())
 
     def __exit__(self, *exc):
@@ -3306,6 +4166,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # the run's own helper process
     ap.add_argument("--tiers", default=None, metavar="JSON",
                     help=argparse.SUPPRESS)   # the run's own second process
+    ap.add_argument("--ingest", default=None, metavar="JSON",
+                    help=argparse.SUPPRESS)   # the run's own third process
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3339,25 +4201,33 @@ def main() -> int:
         Path(args.tiers).write_text(json.dumps(
             tier_process(args.seed, dev), default=json_default))
         return 0
+    if args.ingest:
+        Path(args.ingest).write_text(json.dumps(
+            phase_ingest_all(dev), default=json_default))
+        return 0
     print(f"kernels built in {build_s:.1f} s into {build_dir}", flush=True)
     with tempfile.TemporaryDirectory() as tmp, \
             ShiftGraph(Path(tmp) / "shift_graph.npz") as shift_graph, \
-            TierPhases(Path(tmp) / "tiers.json") as tier_phases:
+            TierPhases(Path(tmp) / "tiers.json") as tier_phases, \
+            TierPhases(Path(tmp) / "ingest.json",
+                       "--ingest") as ingest_phases:
         return run_phases(args, card, build_dir, build_s, t_run, dev,
-                          shift_graph, tier_phases)
+                          shift_graph, tier_phases, ingest_phases)
 
 
 def run_phases(args, card, build_dir, build_s, t_run, dev,
-               shift_graph, tier_phases) -> int:
+               shift_graph, tier_phases, ingest_phases) -> int:
     """Every phase, in order (the tier phases and the sharded deployment
-    in a second process beside phases 2 to 5), then the kernels line and
-    the device line."""
+    in a second process, the ingest and baseline phases in a third,
+    both beside phases 2 to 5), then the kernels line and the device
+    line."""
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     vectors = torch.randn((N, D), generator=gen, device=dev)
     kernels = phase_kernels(vectors, gen, dev)
     kernels.update(phase_pq_kernels(gen, dev))
     kernels["l2_distance"] = phase_l2_distance(vectors, dev)
     tier_phases.start()
+    ingest_phases.start()
     main_path = phase_main_path(args.seed, dev)
     t0 = time.perf_counter()
     filtered = phase_filtered(dev)
@@ -3370,6 +4240,7 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
     deploy = phase_deployment(vectors, gen, args.seed, dev,
                               {k: v["ms"] for k, v in kernels.items()})
     tiers = tier_phases.result()
+    tiers.update(ingest_phases.result())
 
     sources = {"fused_hop_l2": ("fused_hop.cu", "fused_hop.py:160"),
                "fused_hop_pq": ("fused_hop_pq.cu", "fused_hop.py:204"),

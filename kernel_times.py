@@ -19,6 +19,15 @@ device ms}}``; ``--out`` keeps every number.
 Two checkouts run in turns in one machine (A, B, B, A) compare two
 versions of the kernels on one card, e.g. a parent commit unpacked with
 ``git archive`` into ``build/parent`` against this tree.
+
+    python3 kernel_times.py --builds [256,1024]
+
+times, instead of phase 1, what sizes the streaming-ingest phases: a
+Vamana build on the card of the first N rows of ``make_medrag_zipf(
+d=768)`` at ``IndexSpec(degree=64)``'s parameters for each N (the
+searches on the card, RobustPrune on the host), then an upsert of 64
+rows into a database over the largest build, on the card and on the
+CPU.  Prints one JSON line ``{"builds_s": {N: s}, "upsert64_s": {...}}``.
 """
 from __future__ import annotations
 
@@ -55,11 +64,37 @@ def shared_interface_ms(smoke, dev, seed: int) -> dict:
     return out
 
 
+def build_times(sizes, dev) -> dict:
+    """Wall seconds of the builds and upserts named in the docstring."""
+    import time
+    from repro_torch import db
+    from repro_torch.core.vamana import build_vamana
+    from repro_torch.data import make_medrag_zipf
+    n_max = max(sizes)
+    rows = make_medrag_zipf(n=n_max + 64, d=768).corpus
+    params = db.IndexSpec(degree=64).vamana()
+    out = {"builds_s": {}, "upsert64_s": {}}
+    for n in sizes:
+        t0 = time.perf_counter()
+        graph = build_vamana(rows[:n], params, device=dev)
+        torch.cuda.synchronize()
+        out["builds_s"][n] = time.perf_counter() - t0
+    spec = db.IndexSpec(degree=64, spare_capacity=64)
+    for where in (dev, "cpu"):
+        d = db.create(spec, rows[:n_max], prebuilt=graph, device=where)
+        t0 = time.perf_counter()
+        d.upsert(rows[n_max:])
+        out["upsert64_s"][str(where)] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--builds", default=None, metavar="N,N,...",
+                    help="time d=768 Vamana builds of these sizes instead")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     if not (root / "chip_smoke.py").is_file():
@@ -86,6 +121,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     _build.build_all()
+    if args.builds:
+        print(card)
+        print(json.dumps(build_times(
+            [int(n) for n in args.builds.split(",")], dev)))
+        return 0
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     vectors = torch.randn((smoke.N, smoke.D), generator=gen, device=dev)

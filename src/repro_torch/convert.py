@@ -18,6 +18,10 @@ port's state on a given device:
   ``CatapultMaintainer``; ``set_maintainer_counters`` installs them),
   so a parity test can hand a reference maintainer's state to the port
   mid-stream,
+* an HNSW hierarchy (``core/hnsw.py``): the level-0 graph, each upper
+  level's ids and graph, and the entry, as ``HnswIndex`` on a device
+  (each level is a Vamana build, which agrees across the packages on
+  >= 99% of rows only),
 * the graph needs no helper: pass ``prebuilt=(adjacency, medoid)`` to
   ``repro_torch.db.create``; a filtered graph crosses as
   ``prebuilt=(adjacency, medoid, label_entries)``, with the per-row
@@ -31,6 +35,7 @@ import torch
 from repro_torch.adapt import stats as ts
 from repro_torch.core import buckets as bk
 from repro_torch.core.catapult import CatapultState
+from repro_torch.core.hnsw import HnswIndex
 from repro_torch.core.lsh import LSHParams
 from repro_torch.core.lsh_apg import LshApgIndex
 from repro_torch.core.pq import PQCodebook
@@ -61,6 +66,21 @@ def lsh_apg_index_from_numpy(hyperplanes: np.ndarray, table: np.ndarray,
         lsh=LSHParams(hyperplanes=torch.tensor(
             np.asarray(hyperplanes, np.float32), device=device)),
         table=torch.tensor(np.asarray(table, np.int32), device=device))
+
+
+def hnsw_index_from_numpy(vectors: np.ndarray, level_ids, level_adj,
+                          base_adj: np.ndarray, entry: int,
+                          device="cuda") -> HnswIndex:
+    """(N, d) vectors, per-level (n_l,) ids and (n_l, R) adjacency, the
+    (N, R) level-0 graph and the entry id -> ``HnswIndex`` on ``device``."""
+    device = resolve_device(device)
+
+    def up(a, dtype):
+        return torch.tensor(np.asarray(a, dtype), device=device)
+    return HnswIndex(vectors=up(vectors, np.float32),
+                     level_ids=[np.asarray(i, np.int64) for i in level_ids],
+                     level_adj=[up(a, np.int32) for a in level_adj],
+                     base_adj=up(base_adj, np.int32), entry=int(entry))
 
 
 def telemetry_from_numpy(arrays, device="cuda",

@@ -2,7 +2,9 @@
 
 Vamana construction, DiskANN beam search (Algorithm 1), random-hyperplane
 LSH, the catapult buckets and Algorithm 2, FilteredVamana support,
-FreshVamana updates, the LSH-APG baseline and the RAM-tier engine.
+FreshVamana updates, the LSH-APG baseline, the RAM-tier engine, and the
+two baselines of the paper's comparisons: the HNSW-style hierarchy
+(``core.hnsw``) and the Proximity cache (``core.proximity_cache``).
 """
 from repro_torch.core.beam_search import (SearchSpec, beam_search,
                                           beam_search_l2, l2_dist_fn)

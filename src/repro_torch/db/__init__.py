@@ -20,18 +20,25 @@ tiers).
     spec = catapultdb.IndexSpec(tier="tiered", path="tiered.d",
                                 tiered=catapultdb.TieredSpec())
 
+    d = catapultdb.create(catapultdb.IndexSpec(dim=768))    # born empty
+    fe = d.serve(ingest=True)                   # ingest while serving
+    ticket = fe.ingest.put(rows, keys=row_keys)
+    fe.search(queries, k=10)                    # flushes pump the queue
+
 ``create(..., device="cpu")`` / ``open(..., device="cpu")`` run the
 plain PyTorch path instead.
 """
 from repro_torch.db.database import Database
 from repro_torch.db.factory import create, open, sniff
-from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec, IoSpec,
-                                 SearchRequest, SearchResult, TieredSpec)
+from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec,
+                                 IngestSpec, IoSpec, SearchRequest,
+                                 SearchResult, TieredSpec)
 from repro_torch.obs import SearchTrace
 from repro_torch.store.cache import IoStats
 
 __all__ = [
-    "CapabilityError", "Caps", "Database", "IndexSpec", "IoSpec", "IoStats",
+    "CapabilityError", "Caps", "Database", "IndexSpec", "IngestSpec",
+    "IoSpec", "IoStats",
     "SearchRequest", "SearchResult", "SearchTrace", "TieredSpec", "create",
     "open", "sniff",
 ]

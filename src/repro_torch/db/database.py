@@ -4,22 +4,29 @@ Port of ``repro/db/database.py`` for the RAM, single-store disk,
 sharded and tiered tiers: ``search`` (a ``SearchRequest`` or a raw
 query array with keywords, per-request ``publish`` and
 ``filter_labels``, ``explain=True`` traces), ``upsert`` (with ``keys=``
-for a true upsert), ``delete`` (by id or by key), ``consolidate``,
-``save`` (the engine's files plus the key map), ``io_stats`` (all-zero
-on the RAM tier), ``serve`` (the micro-batching frontend, with the
-drift-aware maintainer attached when the spec carries an adapt policy),
-``attach_maintainer`` (a ``TieredMaintainer`` on the tiered tier),
+for a true upsert, locality grouped when the spec carries an
+``IngestSpec``, gids in caller order), ``delete`` (by id or by key),
+``consolidate``, ``save`` (the engine's files, the key map, the
+bootstrap indirection of a database born empty and the ``IngestSpec``),
+``io_stats`` (all-zero on the RAM tier), ``ingest_queue``, ``serve``
+(the micro-batching frontend, with the drift-aware maintainer attached
+when the spec carries an adapt policy — at the cutover on a database
+still empty or seeding — and an ingest queue pumped once a flush),
+``attach_maintainer`` (a ``TieredMaintainer`` on the tiered tier;
+background consolidate at ``IngestSpec.consolidate_threshold``),
 ``metrics`` (with the tiered tier's ``tier_stats()`` as
-``catapultdb_tier_*``), ``warm``, ``close`` and the host views (where
-one engine owns the whole row range, ``caps.host_views``).  Every
-search passes an explicit all-True or all-False ``publish_mask``, as
-the reference's does.  Mutations and maintainer ticks serialize on one
-lock; searches take none.  The ingest methods raise
-``NotImplementedError`` naming, by title, the ROADMAP item that ports
-them.
+``catapultdb_tier_*`` and a bootstrap engine's ``ingest_stats()`` as
+``catapultdb_ingest_*``), ``warm``, ``close`` and the host views (where
+one engine owns the whole row range, ``caps.host_views``; in external
+id order on a database born empty).  Every search passes an explicit
+all-True or all-False ``publish_mask``, as the reference's does.
+Mutations and maintainer ticks serialize on one lock; searches take
+none.
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
 import warnings
@@ -30,10 +37,11 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.adapt import CatapultMaintainer
-from repro_torch.db.spec import (INGEST_ITEM, CapabilityError, Caps,
-                                 IndexSpec, SearchRequest, SearchResult)
-from repro_torch.ingest.keys import (KeyMap, ingest_state_path,
-                                     write_ingest_state)
+from repro_torch.db.spec import (CapabilityError, Caps, IndexSpec,
+                                 SearchRequest, SearchResult)
+from repro_torch.ingest.keys import (KeyMap, ingest_spec_path,
+                                     ingest_state_path, write_ingest_state)
+from repro_torch.ingest.queue import IngestQueue, locality_order
 from repro_torch.obs import MetricsRegistry, TraceRecorder, build_search_trace
 from repro_torch.serving import VectorSearchFrontend
 
@@ -86,17 +94,19 @@ def _tier_metrics(db_ref) -> dict:
             for key, v in db.backend.tier_stats().items()}
 
 
-def _keys_metrics(db_ref) -> dict:
+def _ingest_metrics(db_ref) -> dict:
+    """The key count, and a bootstrap engine's ``ingest_stats()``, as
+    ``catapultdb_ingest_*``."""
     db = db_ref()
     if db is None:
         return {}
-    return {"catapultdb_ingest_keys":
-            float(len(db._keymap) if db._keymap else 0)}
-
-
-def _not_ported(op: str, item: str):
-    raise NotImplementedError(f"Database.{op} is not ported to repro_torch "
-                              f"yet ({item})")
+    out = {"catapultdb_ingest_keys":
+           float(len(db._keymap) if db._keymap else 0)}
+    stats = getattr(db.backend, "ingest_stats", None)
+    if stats is not None:
+        out.update({f"catapultdb_ingest_{key}": float(v)
+                    for key, v in stats().items()})
+    return out
 
 
 class Database:
@@ -139,7 +149,7 @@ class Database:
             me = weakref.ref(self)
             reg.register_collector(partial(_io_metrics, me))
             reg.register_collector(partial(_adapt_metrics, me))
-            reg.register_collector(partial(_keys_metrics, me))
+            reg.register_collector(partial(_ingest_metrics, me))
             if hasattr(backend, "tier_stats"):
                 reg.register_collector(partial(_tier_metrics, me))
 
@@ -237,13 +247,18 @@ class Database:
                labels: Optional[np.ndarray] = None, *,
                keys=None) -> np.ndarray:
         """Insert a batch; returns the assigned ids in caller order
-        (stable forever).
+        (stable forever), on every tier.
 
         ``keys``: caller-chosen row identities (all-int or all-str per
         database, one per row).  A key already present performs a true
         upsert: the new row is inserted, then the old row tombstoned, so
         ``search`` never returns both versions and the key is never
-        absent mid-upsert.  A filtered database needs ``labels``."""
+        absent mid-upsert.  A filtered database needs ``labels``.
+
+        When the spec carries ``ingest.locality_group`` (every database
+        born empty does), the batch is locality grouped before graph
+        insertion — sorted by an LSH code so near rows link in turn —
+        and the returned gids are un-permuted back to caller order."""
         self._need("mutable", "upsert()")
         if labels is not None and not self.caps.filtered:
             raise CapabilityError("labels on an unfiltered index")
@@ -257,9 +272,20 @@ class Database:
         b = vectors.shape[0]
         if keys is not None and len(keys) != b:
             raise ValueError(f"{len(keys)} keys for {b} rows")
+        ing = self.spec.ingest
         with self._mutate_lock:
+            order = None
+            if ing is not None and ing.locality_group and b > 2:
+                order = locality_order(vectors, seed=self.spec.seed)
+                vectors = vectors[order]
+                if labels is not None:
+                    labels = np.asarray(labels)[order]
             gids = np.asarray(self.backend.insert_batch(vectors, labels),
                               np.int64)
+            if order is not None:
+                unperm = np.empty(b, np.int64)
+                unperm[order] = gids     # gid of caller row order[i]
+                gids = unperm
             replaced = 0
             if keys is not None:
                 old = self._ensure_keymap().assign(keys, gids)
@@ -309,25 +335,61 @@ class Database:
         upsert."""
         return self._ensure_keymap()
 
+    def ingest_queue(self, batch_size: Optional[int] = None):
+        """An ``IngestQueue`` over this database: thread-safe ``put()``
+        of rows (+ keys/labels), coalesced into locality-grouped graph
+        insertions of ``spec.ingest.batch_size`` rows, pumped by the
+        serving frontend (``serve(ingest=...)``) or explicitly."""
+        self._need("mutable", "ingest_queue()")
+        return IngestQueue(self, batch_size=batch_size)
+
     # ---------------------------------------------------------------- persist
     def save(self) -> None:
         """Flush every persisted structure (blocks, tombstones, label
-        entries, catapult buckets + adapt telemetry where live, and the
-        key map once there is one) so that ``repro_torch.db.open(
-        spec.path)`` resumes this exact state."""
+        entries, catapult buckets + adapt telemetry where live, the
+        ingest spec, the key map and the bootstrap indirection) so that
+        ``repro_torch.db.open(spec.path)`` resumes this exact state."""
         self._need("persistent", "save()")
         with self._mutate_lock:
-            extra = getattr(self.backend, "manifest_extra", None)
-            if self._keymap is not None and extra is not None:
-                # the sharded manifest points at the key map; it is
-                # rewritten from scratch on every save, so the entry
-                # rides in manifest_extra
-                extra["keys"] = "keys.npz"
+            self._stage_ingest_manifest()
             self.backend.save()
-            if self._keymap is not None:
-                write_ingest_state(
-                    ingest_state_path(self.caps.tier, self.spec.path),
-                    self._keymap)
+            self._persist_ingest_state()
+
+    def _stage_ingest_manifest(self) -> None:
+        """Hand the sharded manifest its durable ingest entries before the
+        engine rewrites it (``save`` and every ``insert_batch`` rewrite
+        the manifest from scratch, merging ``manifest_extra`` in each
+        time, so the entries survive)."""
+        if self.spec.ingest is None and self._keymap is None:
+            return
+        base = getattr(self.backend, "inner", self.backend)
+        extra = getattr(base, "manifest_extra", None)
+        if extra is None:
+            return
+        if self.spec.ingest is not None:
+            extra["ingest"] = self.spec.ingest.to_dict()
+        extra["keys"] = "keys.npz"
+
+    def _persist_ingest_state(self) -> None:
+        """Sidecars beside the saved index: the IngestSpec json (single
+        stores and tiered directories; the sharded tier carries it in
+        its manifest) and the keys npz (key map + bootstrap external-id
+        indirection), in the reference's schema."""
+        path = self.spec.path
+        bootstrap = getattr(self.backend, "persist_arrays", None)
+        if self._keymap is None and bootstrap is None:
+            return
+        state = bootstrap() if bootstrap is not None else {}
+        write_ingest_state(ingest_state_path(self.caps.tier, path),
+                           self._keymap, state.get("ext2int"),
+                           state.get("ext_tomb"),
+                           ext_labels=state.get("ext_labels"))
+        if self.spec.ingest is not None and self.caps.tier != "sharded":
+            sp = ingest_spec_path(self.caps.tier, path)
+            tmp = sp + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(self.spec.ingest.to_dict(), f, indent=1)
+            os.replace(tmp, sp)
 
     # ---------------------------------------------------------------- serve
     def serve(self, *, max_batch: int = 64, k: Optional[int] = None,
@@ -338,21 +400,45 @@ class Database:
         attached when the spec carries an adapt policy.
 
         ``maintain``: None = follow ``spec.adapt``; False = never
-        attach; a ``PolicyConfig`` = attach with that policy.
-        ``ingest`` (an ingest queue the frontend pumps) is not ported
-        yet.
+        attach; a ``PolicyConfig`` = attach with that policy.  On a
+        database born empty that has not cut over yet, the maintainer
+        attaches at the cutover (``fe.maintainer`` is None until then).
+
+        ``ingest``: an ``IngestQueue`` (or True for a fresh one via
+        ``ingest_queue()``) the frontend pumps once per flush — the
+        ingest-while-serving interleave.  The queue rides on the
+        returned frontend as ``fe.ingest``.
         """
-        if ingest is not None:
-            _not_ported("serve(ingest=...)", INGEST_ITEM)
         maintainer = None
+        deferred_policy = None
         policy = self.spec.adapt if maintain is None else maintain
         if policy:
-            maintainer = self.attach_maintainer(
-                policy if policy is not True else None)
+            if self.backend.mode != "catapult":
+                # fail at serve() time, not inside the upsert that
+                # happens to trigger the deferred cutover attach
+                raise CapabilityError(
+                    f"maintainer needs mode='catapult', this database "
+                    f"is {self.backend.mode!r}")
+            if getattr(self.backend, "bootstrap_phase", "graph") != "graph":
+                # no catapult buckets exist before the seed->graph
+                # cutover; attach the moment they do
+                deferred_policy = policy
+            else:
+                maintainer = self.attach_maintainer(
+                    policy if policy is not True else None)
+        if ingest is True:
+            ingest = self.ingest_queue()
         fe = VectorSearchFrontend(
             self.backend, k=k or self.spec.k, max_batch=max_batch,
             beam_width=beam_width or self.spec.beam_width,
-            maintainer=maintainer, metrics=self.registry)
+            maintainer=maintainer, metrics=self.registry, ingest=ingest)
+        if deferred_policy is not None:
+            # runs inside the upsert that crosses the cutover, under the
+            # mutate lock the maintainer shares (an RLock)
+            def _attach(_eng, _policy=deferred_policy, _fe=fe):
+                _fe.maintainer = self.attach_maintainer(
+                    _policy if _policy is not True else None)
+            self.backend.on_cutover(_attach)
         # the frontend's rolling window (QPS, occupancy, flush p99)
         # rides into db.metrics() as a pull collector
         self.registry.register_collector(fe.window.as_collector())
@@ -364,9 +450,9 @@ class Database:
         hot/cold rebalancing in one tick), ``CatapultMaintainer``
         elsewhere — sharing this database's mutate lock; ``policy`` and
         ``tick_every`` default to the spec's ``adapt`` and
-        ``adapt_tick_every``.  (The reference's background-consolidate
-        threshold comes from ``IngestSpec``, which arrives with ROADMAP
-        queue 1, item 'ingest/'.)"""
+        ``adapt_tick_every``.  When the spec carries an ``IngestSpec``,
+        the maintainer runs a background ``consolidate()`` whenever the
+        tombstone fraction crosses its ``consolidate_threshold``."""
         if self.backend.mode != "catapult":
             raise CapabilityError(
                 f"maintainer needs mode='catapult', this database is "
@@ -375,9 +461,12 @@ class Database:
         if self.caps.tier == "tiered":
             from repro_torch.tiered import TieredMaintainer
             cls = TieredMaintainer
+        ing = self.spec.ingest
         self.maintainer = cls(
             self.backend, policy or self.spec.adapt,
             tick_every=tick_every or self.spec.adapt_tick_every,
+            consolidate_threshold=(ing.consolidate_threshold
+                                   if ing is not None else 0.0),
             mutate_lock=self._mutate_lock)
         return self.maintainer
 
@@ -438,15 +527,21 @@ class Database:
 
     @property
     def vectors(self) -> np.ndarray:
-        """Host view of the active rows (``caps.host_views``)."""
+        """Host view of the active rows (``caps.host_views``).  Indexed
+        by external id on a database born empty (compacted rows
+        zeroed)."""
         self._need("host_views", "db.vectors")
-        return self.backend._vec_np[: self.backend.n_active]
+        n = getattr(self.backend, "ext_rows", self.backend.n_active)
+        return self.backend._vec_np[:n]
 
     @property
     def tombstones(self) -> np.ndarray:
-        """Tombstone flags of the active rows (``caps.host_views``)."""
+        """Tombstone flags of the active rows (``caps.host_views``).  On
+        a database born empty the index is the external id space: ids
+        outlive compaction, so a dropped row still reads True."""
         self._need("host_views", "db.tombstones")
-        return self.backend._tomb_np[: self.backend.n_active]
+        n = getattr(self.backend, "ext_rows", self.backend.n_active)
+        return self.backend._tomb_np[:n]
 
     def _need(self, cap: str, op: str) -> None:
         """Raise ``CapabilityError`` naming the tier when ``caps`` lacks
@@ -479,6 +574,3 @@ class Database:
                       "db.io_stats()", DeprecationWarning, stacklevel=2)
         return self.backend.cache_stats
 
-    # ------------------------------------------------ not in the port yet
-    def ingest_queue(self, batch_size: Optional[int] = None):
-        _not_ported("ingest_queue", INGEST_ITEM)

@@ -6,9 +6,10 @@ what is persisted there, sniffing it: a CTPL block file (any version,
 v1–v3) opens as the single-store disk tier, a sharded manifest
 directory as the scatter-gather tier, a tiered manifest directory as
 the hot/cold tiered database (a tiered layout wins over the sharded
-manifest nested in its cold tier), sidecars included.  Empty-bootstrap
-creation and persisted streaming-ingest state come later (ROADMAP queue
-1, item 'ingest/'): asking for them raises before any state is opened.
+manifest nested in its cold tier), sidecars included.  ``create(spec)``
+with no vectors returns a database born empty (``repro_torch.ingest``'s
+bootstrap engine); ``open`` resumes it from its keys sidecar's
+external-id indirection and its persisted ``IngestSpec``.
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ import numpy as np
 
 from repro_torch.core.engine import VectorSearchEngine
 from repro_torch.db.database import Database
-from repro_torch.db.spec import INGEST_ITEM, Caps, IndexSpec, TieredSpec
+from repro_torch.db.spec import Caps, IndexSpec, IngestSpec, TieredSpec
 from repro_torch.device import resolve_device
+from repro_torch.ingest.bootstrap import BootstrapEngine
 from repro_torch.ingest.keys import (KeyMap, ingest_spec_path,
                                      ingest_state_path, read_ingest_state)
 from repro_torch.store.layout import MAGIC
@@ -80,15 +82,15 @@ def _caps(tier: str, filtered: bool, host_views: bool = True) -> Caps:
                 host_views=bool(host_views))
 
 
-def _host_views(tier: str, eng) -> bool:
+def _host_views(tier: str, tiered: Optional[TieredSpec]) -> bool:
     """Per-row host views (``db.vectors``/``db.tombstones``) exist when
     ONE engine owns the whole row range: any single store, or a tiered
-    database over a single-store cold tier.  Shard facades keep their
-    rows per shard."""
+    database over a single-store cold tier (``tiered``: its spec, None
+    for the defaults).  Shard facades keep their rows per shard."""
     if tier == "sharded":
         return False
     if tier == "tiered":
-        return eng.tiered.cold_tier != "sharded"
+        return (tiered or TieredSpec()).cold_tier != "sharded"
     return True
 
 
@@ -102,6 +104,11 @@ def create(spec: IndexSpec, vectors: Optional[np.ndarray] = None,
     ``spec.path`` (and its sidecars); ``tier="sharded"`` and
     ``tier="tiered"`` write their manifest directories there.
 
+    ``vectors=None`` bootstraps EMPTY: the returned database serves at
+    once (``spec.dim`` required — there is nothing to infer it from)
+    and builds its medoid and graph as the first rows ``upsert`` in,
+    every build on ``device``.
+
     ``prebuilt``: optional (adjacency, medoid[, label_entries]) from a
     previous build over the SAME vectors — shares one graph across
     engines, or carries the reference package's graph across.
@@ -109,10 +116,16 @@ def create(spec: IndexSpec, vectors: Optional[np.ndarray] = None,
     """
     dev = resolve_device(device)
     if vectors is None:
-        raise NotImplementedError(
-            f"create(spec) with no vectors bootstraps a streaming-ingest "
-            f"database, which is not ported to repro_torch yet "
-            f"({INGEST_ITEM})")
+        if labels is not None or prebuilt is not None:
+            raise ValueError("create(spec) with no vectors takes neither "
+                             "labels nor a prebuilt graph — stream rows "
+                             "in through upsert()")
+        eng = BootstrapEngine(spec, device=dev)
+        spec = eng.spec          # ingest defaults materialized
+        db = Database(eng, spec, _caps(spec.tier, spec.filters,
+                                       _host_views(spec.tier, spec.tiered)))
+        db.warm()
+        return db
     vectors = np.ascontiguousarray(vectors, np.float32)
     n, d = vectors.shape
     if spec.dim is not None and spec.dim != d:
@@ -125,9 +138,27 @@ def create(spec: IndexSpec, vectors: Optional[np.ndarray] = None,
     if prebuilt is not None and spec.tier in ("sharded", "tiered"):
         raise ValueError("prebuilt graphs are single-store only — each "
                          "shard/tier builds over its own row set")
+    eng = _build_engine(spec, vectors, labels, n_labels, prebuilt,
+                        device=dev)
+    if spec.tier == "tiered":
+        spec = dataclasses.replace(spec, tiered=eng.tiered)
+    db = Database(eng, spec, _caps(spec.tier, labels is not None,
+                                   _host_views(spec.tier, spec.tiered)))
+    db.warm()
+    return db
+
+
+def _build_engine(spec: IndexSpec, vectors: np.ndarray,
+                  labels: Optional[np.ndarray], n_labels: Optional[int],
+                  prebuilt=None, *, device="cuda"):
+    """Construct and build the tier backend on ``device`` — the ONE
+    construction path, shared by ``create()`` and the bootstrap engine's
+    cutover and generation rebuilds (which is what makes a streamed-in
+    index identical to a batch-built twin of the same rows)."""
     kw = dict(mode=spec.mode, vamana=spec.vamana(), n_bits=spec.n_bits,
               bucket_capacity=spec.bucket_capacity, pq_subspaces=spec.pq,
-              seed=spec.seed, hop_backend=spec.hop_backend, device=dev)
+              seed=spec.seed, hop_backend=spec.hop_backend,
+              device=resolve_device(device))
     if spec.tier in ("sharded", "tiered"):
         from repro_torch.store.sharded_store import \
             ShardedDiskVectorSearchEngine
@@ -137,28 +168,22 @@ def create(spec: IndexSpec, vectors: Optional[np.ndarray] = None,
                 store_dir=spec.path, cache_frames=spec.cache_frames,
                 n_shards=spec.n_shards, io=spec.io,
                 tiered=spec.tiered or TieredSpec(), **kw)
-            spec = dataclasses.replace(spec, tiered=eng.tiered)
         else:
             eng = ShardedDiskVectorSearchEngine(
                 store_dir=spec.path, n_shards=spec.n_shards,
                 cache_frames=spec.cache_frames, io=spec.io, **kw)
         eng.build(vectors, labels=labels, n_labels=n_labels,
                   spare_capacity=spec.spare_capacity)
+        return eng
+    from repro_torch.store.io_engine import DiskVectorSearchEngine
+    kw["capacity"] = vectors.shape[0] + spec.spare_capacity
+    if spec.tier == "disk":
+        eng = DiskVectorSearchEngine(cache_frames=spec.cache_frames,
+                                     io=spec.io, store_path=spec.path, **kw)
     else:
-        from repro_torch.store.io_engine import DiskVectorSearchEngine
-        kw["capacity"] = n + spec.spare_capacity
-        if spec.tier == "disk":
-            eng = DiskVectorSearchEngine(cache_frames=spec.cache_frames,
-                                         io=spec.io, store_path=spec.path,
-                                         **kw)
-        else:
-            eng = VectorSearchEngine(**kw)
-        eng.build(vectors, labels=labels, n_labels=n_labels,
-                  prebuilt=prebuilt)
-    db = Database(eng, spec, _caps(spec.tier, labels is not None,
-                                   _host_views(spec.tier, eng)))
-    db.warm()
-    return db
+        eng = VectorSearchEngine(**kw)
+    eng.build(vectors, labels=labels, n_labels=n_labels, prebuilt=prebuilt)
+    return eng
 
 
 def open(path: str, *, mode: Optional[str] = None,
@@ -176,13 +201,15 @@ def open(path: str, *, mode: Optional[str] = None,
     fields are ignored in favour of what is on disk.  Adapt sidecars
     (``<store>.adapt.npz``, per-shard ``.buckets.npz`` and the
     manifest's gate) resume buckets, telemetry and the utility-gate
-    verdict; a keys sidecar restores the caller-key map.  Persisted
-    streaming-ingest state raises ``NotImplementedError`` before
-    anything is opened.
+    verdict; a keys sidecar restores the caller-key map.  The persisted
+    ``IngestSpec`` (an ``ingest.json`` sidecar, a sharded manifest's
+    ``ingest`` entry) resumes unless ``spec.ingest`` overrides it; when
+    the keys sidecar also carries the bootstrap external-id indirection
+    (the database was born empty), the engine is rewrapped in a
+    ``BootstrapEngine`` so external ids resolve exactly as before.
     """
     dev = resolve_device(device)
     tier, _version = sniff(path)
-    state = _keys_state(tier, path)
     runtime = spec or IndexSpec()
     # io=None means "no preference": the engine resumes the persisted
     # IoSpec; an explicit runtime.io overrides it
@@ -211,36 +238,33 @@ def open(path: str, *, mode: Optional[str] = None,
         bucket_capacity=eng.bucket_capacity, seed=eng.seed,
         n_shards=getattr(eng, "n_shards", runtime.n_shards), io=eng.io,
         hop_backend=eng.hop_backend,
-        tiered=eng.tiered if tier == "tiered" else runtime.tiered)
-    keymap = KeyMap.from_arrays(state) if state is not None else None
+        tiered=eng.tiered if tier == "tiered" else runtime.tiered,
+        ingest=runtime.ingest or _read_persisted_ingest(tier, path))
+    state = read_ingest_state(ingest_state_path(tier, path))
+    keymap = None
+    if state is not None:
+        keymap = KeyMap.from_arrays(state)
+        if "ext2int" in state:
+            eng = BootstrapEngine.resume(opened, eng, state)
+            opened = eng.spec
     db = Database(eng, opened, _caps(tier, eng.filtered,
-                                     _host_views(tier, eng)), keymap=keymap)
+                                     _host_views(tier, opened.tiered)),
+                  keymap=keymap)
     db.warm()
     return db
 
 
-def _keys_state(tier: str, path: str) -> Optional[dict]:
-    """The persisted key-map arrays of ``path`` (None without any).
-    Raises ``NotImplementedError`` when ``path`` carries streaming-
-    ingest state: an ``IngestSpec`` (a sharded manifest's ``ingest``
-    entry, an ``ingest.json`` sidecar elsewhere) or the bootstrap
-    external-id indirection of a database born empty."""
+def _read_persisted_ingest(tier: str, path: str) -> Optional[IngestSpec]:
+    """The IngestSpec a persisted index carries: the manifest ``ingest``
+    entry on the sharded tier, an ``ingest.json`` sidecar elsewhere.
+    None when the index has none."""
     if tier == "sharded":
         from repro_torch.store.sharded_store import MANIFEST_NAME
         with builtins.open(os.path.join(path, MANIFEST_NAME)) as f:
-            carries = "ingest" in json.load(f)
-        where = os.path.join(path, MANIFEST_NAME)
-    else:
-        where = ingest_spec_path(tier, path)
-        carries = os.path.exists(where)
-    if carries:
-        raise NotImplementedError(
-            f"{where!r} carries a streaming-ingest spec, which is not "
-            f"ported to repro_torch yet ({INGEST_ITEM})")
-    state = read_ingest_state(ingest_state_path(tier, path))
-    if state is not None and "ext2int" in state:
-        raise NotImplementedError(
-            f"{ingest_state_path(tier, path)!r} carries the bootstrap "
-            f"external-id indirection of a database born empty, which is "
-            f"not ported to repro_torch yet ({INGEST_ITEM})")
-    return state
+            d = json.load(f).get("ingest")
+        return IngestSpec.from_dict(d) if d else None
+    p = ingest_spec_path(tier, path)
+    if not os.path.exists(p):
+        return None
+    with builtins.open(p) as f:
+        return IngestSpec.from_dict(json.load(f))

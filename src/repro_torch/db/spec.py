@@ -11,10 +11,9 @@ CTPL shards under a manifest directory) and the hot/cold tiered tier
 ``catapult`` and ``diskann`` modes; at full precision or with PQ
 traversal (``pq=M``; the disk tiers always traverse PQ), filtered
 (``filters=True``) or not, with the adapt layer
-(``adapt=PolicyConfig(...)``, catapult mode) or without.  ``ingest``
-keeps its place but only takes ``None``: streaming ingest raises
-``CapabilityError`` naming, by title, the ROADMAP item that will bring
-it.
+(``adapt=PolicyConfig(...)``, catapult mode) or without, and born
+empty for streaming ingest (``ingest=IngestSpec(...)``, defaulted when
+``create`` gets no vectors).
 """
 from __future__ import annotations
 
@@ -93,6 +92,81 @@ class IoSpec:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
+BOOTSTRAP_MODES = ("seed", "direct")
+
+
+@dataclasses.dataclass(frozen=True)
+class IngestSpec:
+    """Streaming-ingest configuration (``IndexSpec.ingest``).
+
+    Set (or defaulted) whenever a database is born empty —
+    ``create(spec)`` with no vectors — and available on any mutable
+    database for the batching/locality knobs.
+
+    * ``batch_size`` — ``IngestQueue`` flush granularity: concurrent
+      ``put()`` rows coalesce into one graph insertion of (at most)
+      this many rows.
+    * ``bootstrap`` — ``'seed'`` serves the first rows from an exact
+      brute-force buffer and cuts over to the graph at
+      ``bootstrap_cutover`` rows (the deterministic build over the
+      buffered rows in arrival order — identical to a batch build of
+      the same prefix); ``'direct'`` builds the graph from the very
+      first insert batch.
+    * ``initial_capacity`` — row preallocation of the first graph
+      build; growth past it re-creates the backend at
+      ``grow_factor`` times the previous capacity (a FreshDiskANN-style
+      generation rebuild that also compacts tombstones away).
+    * ``consolidate_threshold`` — tombstone fraction at which an
+      attached maintainer runs ``consolidate()`` in the background
+      (0 disables).
+    * ``locality_group`` — Slipstream-style batch reordering: each
+      insert batch is sorted by an LSH code before graph insertion so
+      nearby rows link sequentially; assigned ids still come back in
+      caller order.
+
+    Persists next to the index (single store: ``<store>.ingest.json``
+    sidecar; sharded: the manifest's ``ingest`` entry) and is resumed
+    by ``open()``; an explicit ``spec.ingest`` overrides the persisted
+    one.
+    """
+    batch_size: int = 256
+    bootstrap: str = "seed"
+    bootstrap_cutover: int = 256
+    initial_capacity: int = 1024
+    grow_factor: float = 2.0
+    consolidate_threshold: float = 0.25
+    locality_group: bool = True
+
+    def __post_init__(self) -> None:
+        if self.batch_size < 1:
+            raise ValueError(f"ingest.batch_size must be >= 1, "
+                             f"got {self.batch_size}")
+        if self.bootstrap not in BOOTSTRAP_MODES:
+            raise ValueError(f"ingest.bootstrap must be one of "
+                             f"{BOOTSTRAP_MODES}, got {self.bootstrap!r}")
+        if self.bootstrap_cutover < 2:
+            raise ValueError(f"ingest.bootstrap_cutover must be >= 2 (a "
+                             f"graph needs two rows), "
+                             f"got {self.bootstrap_cutover}")
+        if self.initial_capacity < 1:
+            raise ValueError(f"ingest.initial_capacity must be >= 1, "
+                             f"got {self.initial_capacity}")
+        if self.grow_factor <= 1.0:
+            raise ValueError(f"ingest.grow_factor must be > 1.0, "
+                             f"got {self.grow_factor}")
+        if not (0.0 <= self.consolidate_threshold < 1.0):
+            raise ValueError(f"ingest.consolidate_threshold must be in "
+                             f"[0, 1), got {self.consolidate_threshold}")
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "IngestSpec":
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
 class Caps(NamedTuple):
     """What this database can do — probe instead of type-sniffing."""
     tier: str            # 'ram' | 'disk' | 'sharded' | 'tiered'
@@ -161,10 +235,6 @@ class TieredSpec:
         return cls(**{k: v for k, v in d.items() if k in known})
 
 
-# what the port lacks -> the ROADMAP queue 1 item (by title) that brings it
-INGEST_ITEM = "ROADMAP queue 1, item 'ingest/'"
-
-
 @dataclasses.dataclass(frozen=True)
 class IndexSpec:
     """Everything needed to construct an index, tier included.
@@ -199,7 +269,10 @@ class IndexSpec:
     n_shards: int = 2
     tiered: Optional[TieredSpec] = None
     io: Optional[IoSpec] = None
-    ingest: Optional[object] = None
+    # streaming ingest (None = IngestSpec() defaults, materialized when
+    # a database is created empty); persisted with the index and
+    # resumed by open()
+    ingest: Optional[IngestSpec] = None
     hop_backend: str = "unfused"
     # serving defaults (overridable per SearchRequest)
     k: int = 10
@@ -231,6 +304,10 @@ class IndexSpec:
         if self.io is not None and not isinstance(self.io, IoSpec):
             raise ValueError(f"io must be an IoSpec (or None for the "
                              f"synchronous default), got {type(self.io)}")
+        if self.ingest is not None and not isinstance(self.ingest,
+                                                      IngestSpec):
+            raise ValueError(f"ingest must be an IngestSpec (or None for "
+                             f"the defaults), got {type(self.ingest)}")
         if self.tiered is not None and not isinstance(self.tiered,
                                                       TieredSpec):
             raise ValueError(f"tiered must be a TieredSpec (or None for "
@@ -238,10 +315,6 @@ class IndexSpec:
         if self.hop_backend not in HOP_BACKENDS:
             raise ValueError(f"hop_backend must be one of {HOP_BACKENDS}, "
                              f"got {self.hop_backend!r}")
-        if self.ingest is not None:
-            raise CapabilityError(
-                f"IndexSpec.ingest={self.ingest!r} is not ported to "
-                f"repro_torch yet: {INGEST_ITEM}")
 
     def vamana(self) -> VamanaParams:
         return VamanaParams(max_degree=self.degree,

@@ -8,9 +8,12 @@ level up in ``Database.upsert``: when a key already maps to a gid, the
 new row is inserted first and the old gid tombstoned after.
 
 Persistence is one npz per database (single store: ``<store>.keys.npz``
-beside the block file), in the reference's schema.  The reference's npz
-also carries its bootstrap external-id indirection (``ext2int``) when a
-database was born empty; the port neither writes nor opens that yet.
+beside the block file; sharded/tiered: ``keys.npz`` inside the manifest
+directory), in the reference's schema, member for member.  The same
+npz carries the bootstrap engine's external-id indirection (``ext2int``,
+``ext_tomb``, ``ext_labels``) when the database was born empty (see
+``repro_torch.ingest.bootstrap``), so one sidecar restores the whole
+ingest state, and either package opens the other's.
 """
 from __future__ import annotations
 
@@ -132,9 +135,18 @@ class KeyMap:
         return m
 
 
-def write_ingest_state(npz_path: str, keymap: Optional[KeyMap]) -> None:
-    """One atomic-ish npz holding the keymap, in the reference's schema."""
+def write_ingest_state(npz_path: str, keymap: Optional[KeyMap],
+                       ext2int: Optional[np.ndarray] = None,
+                       ext_tomb: Optional[np.ndarray] = None,
+                       ext_labels: Optional[np.ndarray] = None) -> None:
+    """One atomic-ish npz holding the keymap and (when the database was
+    born empty) the bootstrap engine's external-id indirection."""
     arrays = (keymap or KeyMap()).to_arrays()
+    if ext2int is not None:
+        arrays["ext2int"] = np.asarray(ext2int, np.int64)
+        arrays["ext_tomb"] = np.asarray(ext_tomb, bool)
+        if ext_labels is not None:
+            arrays["ext_labels"] = np.asarray(ext_labels, np.int32)
     tmp = npz_path + ".tmp"
     with open(tmp, "wb") as f:
         np.savez(f, **arrays)

@@ -1,9 +1,10 @@
 """Micro-batching front door for vector search.
 
 Port of ``repro/serving/engine.py``'s ``VectorSearchFrontend``: single
-queries coalesce into fixed-shape batches and dispatch to the port's
-search backend (the RAM-tier ``VectorSearchEngine``), with the adapt
-layer's maintainer observing every dispatched chunk.  The reference's
+queries coalesce into fixed-shape batches and dispatch to any of the
+port's search backends (every tier, and a database born empty), with the
+adapt layer's maintainer observing every dispatched chunk and an
+attached ingest queue pumped once a flush.  The reference's
 ``ServingEngine`` (LM decode) comes with ROADMAP queue 1, item 'LLM/RAG
 stack last'.
 """

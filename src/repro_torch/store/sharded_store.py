@@ -96,9 +96,10 @@ class ShardedDiskVectorSearchEngine:
     dim: int = 0
     filtered: bool = False
     n_labels: int = 0
-    # durable caller-owned manifest entries (the key map's "keys"
-    # pointer): the manifest is rewritten from scratch on every insert
-    # and save, so these are merged in each time
+    # durable caller-owned manifest entries (the ingest subsystem's
+    # "ingest" spec and "keys" sidecar pointer): the manifest is
+    # rewritten from scratch on every insert and save, so these are
+    # merged in each time
     manifest_extra: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:

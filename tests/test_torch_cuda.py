@@ -900,3 +900,138 @@ def test_tiered_database_on_the_card_matches_the_cpu(dev, tmp_path,
     finally:
         card.close()
         cpu.close()
+
+
+def _ingest_twins_equal(card, cpu):
+    a, b = card.backend, cpu.backend
+    assert (a.phase, a.cutovers, a.growths, a.capacity) == (
+        b.phase, b.cutovers, b.growths, b.capacity)
+    np.testing.assert_array_equal(a._ext_tomb, b._ext_tomb)
+    np.testing.assert_array_equal(a._ext2int, b._ext2int)
+    np.testing.assert_array_equal(a._gen[1], b._gen[1])
+    assert dict(card.keys._fwd) == dict(cpu.keys._fwd)
+
+
+@pytest.mark.parametrize("tier", ["ram", "disk", "sharded", "tiered"])
+def test_ingest_born_database_on_the_card_matches_the_cpu(dev, tmp_path,
+                                                          monkeypatch, tier):
+    """A database born empty on the card and its CPU twin: equal ext ids,
+    phases, indirection and search ids.  On the RAM tier the twins stream
+    in lockstep, the CPU twin's builds taking the card's graph (a Vamana
+    build on each device may part on a near-tie of float sums); on the
+    persisted tiers the card streams, saves, and a card and a CPU twin
+    reopen copies (the tiered CPU twin with the card's hot graph) and
+    continue with keyed upserts and deletes, no rebuild."""
+    import shutil
+    from repro_torch import db
+    from repro_torch.db import factory
+    from repro_torch.ingest import BootstrapEngine
+    vec, _, qs, _ = _labeled_corpus(71, n=448)
+    spec = dict(dim=16, degree=16, build_beam=32, n_bits=4,
+                bucket_capacity=8, n_shards=2, cache_frames=48,
+                ingest=db.IngestSpec(bootstrap_cutover=64,
+                                     initial_capacity=128, batch_size=64))
+
+    def stream(dbs, lo, hi):
+        for a in range(lo, hi, 64):
+            gids = [d.upsert(vec[a: a + 64], keys=list(range(a, a + 64)))
+                    for d in dbs]
+            for g in gids[1:]:
+                np.testing.assert_array_equal(g, gids[0])
+
+    if tier == "ram":
+        graphs, real = [], factory._build_engine
+
+        def build(spec, vectors, labels, n_labels, prebuilt=None, *,
+                  device="cuda"):
+            if torch.device(device).type == "cuda":
+                eng = real(spec, vectors, labels, n_labels, prebuilt,
+                           device=device)
+                graphs.append((eng._adj_np.copy(), int(eng.medoid)))
+                return eng
+            return real(spec, vectors, labels, n_labels, graphs.pop(0),
+                        device=device)
+
+        monkeypatch.setattr(factory, "_build_engine", build)
+        twins = [db.create(db.IndexSpec(**spec), device=w)
+                 for w in (dev, "cpu")]
+        stream(twins, 0, 384)
+        assert twins[0].backend.growths >= 1 and not graphs
+    else:
+        born = str(tmp_path / "born")
+        d = db.create(db.IndexSpec(tier=tier, path=born, **spec),
+                      device=dev)
+        stream([d], 0, 320)
+        assert d.backend.growths == 2
+        d.save()
+        d.close()
+        twins = []
+        for name, where in (("card", dev), ("cpu", "cpu")):
+            p = str(tmp_path / name)
+            if tier == "disk":
+                for suffix in ("", ".io.json", ".keys.npz", ".ingest.json"):
+                    shutil.copy(born + suffix, p + suffix)
+            else:
+                shutil.copytree(born, p)
+            twins.append(db.open(p, device=where))
+        if tier == "tiered":
+            a, b = twins[0].backend.inner, twins[1].backend.inner
+            b.hot._adj_np[:] = a.hot._adj_np
+            b.hot._adj = b.hot._upload(b.hot._adj_np)
+            b.hot.medoid = a.hot.medoid
+        stream(twins, 320, 384)
+    card, cpu = twins
+    try:
+        assert isinstance(card.backend, BootstrapEngine)
+        assert card.backend.inner.device == dev
+        for d in twins:
+            d.delete(keys=list(range(0, 40)))
+        _ingest_twins_equal(card, cpu)
+        for lo in (0, 32):
+            r = [d.search(qs[lo: lo + 32], k=5, beam_width=16)
+                 for d in twins]
+            np.testing.assert_array_equal(r[0].ids, r[1].ids)
+            np.testing.assert_array_equal(r[0].stats.hops, r[1].stats.hops)
+            assert not np.isin(r[0].ids,
+                               np.nonzero(card.backend._ext_tomb)[0]).any()
+    finally:
+        card.close()
+        cpu.close()
+
+
+def test_hnsw_on_the_card_matches_the_cpu(dev):
+    """``HnswEngine`` built on the card, and CPU twins over the same
+    hierarchy and planes: two passes in each mode give equal ids and
+    hops, and warm catapults take fewer hops than the plain search."""
+    from repro_torch import convert
+    from repro_torch.core import buckets as bk
+    from repro_torch.core import hnsw
+    from repro_torch.core.lsh import LSHParams
+    from repro_torch.core.vamana import VamanaParams
+    vec, _, qs, _ = _labeled_corpus(73, n=1500)
+    cat = hnsw.HnswEngine(mode="catapult", n_bits=4, bucket_capacity=8,
+                          device=dev).build(
+        vec, VamanaParams(max_degree=16, build_beam=32))
+    ix = cat.index
+    assert ix.base_adj.device.type == "cuda" and ix.level_ids
+    plain = hnsw.HnswEngine(mode="plain", device=dev)
+    plain.index = ix
+    cpu_ix = convert.hnsw_index_from_numpy(
+        ix.vectors.cpu().numpy(), ix.level_ids,
+        [a.cpu().numpy() for a in ix.level_adj], ix.base_adj.cpu().numpy(),
+        ix.entry, device="cpu")
+    hops = {}
+    for eng in (plain, cat):
+        twin = hnsw.HnswEngine(mode=eng.mode, n_bits=4, bucket_capacity=8,
+                               device="cpu")
+        twin.index = cpu_ix
+        if eng.mode == "catapult":
+            twin._lsh = LSHParams(hyperplanes=cat._lsh.hyperplanes.cpu())
+            twin._buckets = bk.make_buckets(16, 8, device="cpu")
+        for _ in range(2):
+            a = eng.search(qs, k=5, beam_width=8)
+            b = twin.search(qs, k=5, beam_width=8)
+            np.testing.assert_array_equal(a[0], b[0])
+            np.testing.assert_array_equal(a[2]["hops"], b[2]["hops"])
+        hops[eng.mode] = a[2]["hops"].mean()
+    assert hops["catapult"] < hops["plain"]

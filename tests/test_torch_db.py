@@ -189,6 +189,76 @@ def test_chip_smoke_update_and_build_accounting(corpus, graph, monkeypatch,
     assert sum(calls.values()) == 0
 
 
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread for a test of many small CPU ops: as fast
+    alone, and no spinning beside other test workers."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_chip_smoke_ingest_and_hnsw_launch_accounting(corpus, queries,
+                                                      monkeypatch,
+                                                      one_torch_thread):
+    """What ``chip_smoke.py`` holds this slice's paths to, against the
+    wrapper calls of a CPU run: a database born empty launches nothing
+    while empty or seeding (``IngestSpy.seed_launches``); its cutover,
+    growth and consolidate rebuilds and its inserts launch
+    ``gather_distance`` once a search plus once an iteration
+    (``build_spy``); its graph-phase searches and the maintainer's folds
+    are on ``expected_launches``; an ``HnswEngine`` batch is its descent
+    and level-0 searches plus one ``lsh_hash`` in catapult mode
+    (``hnsw_launches``)."""
+    from repro_torch.adapt import PolicyConfig
+    from repro_torch.core import hnsw
+    from repro_torch.core.vamana import VamanaParams
+    smoke = _load_chip_smoke()
+    calls = _count_wrapper_calls(monkeypatch)
+    db = tdb.create(tdb.IndexSpec(dim=16, adapt=PolicyConfig(), **SPEC,
+                                  ingest=tdb.IngestSpec(
+                                      bootstrap_cutover=128,
+                                      initial_capacity=256, batch_size=64,
+                                      consolidate_threshold=0.2)),
+                    device="cpu")
+    fe = db.serve(max_batch=32, ingest=True)
+    data = corpus[0]
+    with smoke.IngestSpy(db.backend, device_type="cpu") as spy:
+        for lo in range(0, 128, 64):                   # empty, then seed
+            fe.ingest.put(data[lo: lo + 64], keys=list(range(lo, lo + 64)))
+            fe.search(queries[:32], k=10)
+        assert db.backend.bootstrap_phase == "graph"
+        assert sum(calls.values()) == len(spy.builds.iters) + sum(
+            spy.builds.iters) > 0
+        assert not any(spy.seed_launches.values())
+        assert {p for p, _, _ in spy.searches} == {"empty", "seed"}
+        for lo in range(128, 320, 64):                 # a growth, inserts
+            fe.ingest.put(data[lo: lo + 64], keys=list(range(lo, lo + 64)))
+            fe.search(queries[:32], k=10)
+        db.delete(keys=list(range(120)))
+        for _ in range(40):                            # the consolidate
+            fe.search(queries[32:64], k=10)
+            if fe.maintainer.consolidations:
+                break
+    assert db.backend.growths >= 1 and fe.maintainer.consolidations == 1
+    assert spy.folds > 0 and calls == spy.expected("unfused")
+    calls.update(dict.fromkeys(calls, 0))
+    with smoke.build_spy("cpu") as bs:
+        eng = hnsw.HnswEngine(mode="catapult", n_bits=4, bucket_capacity=8,
+                              device="cpu").build(
+            data[:300], VamanaParams(max_degree=16, build_beam=32))
+    assert calls == bs.expected()
+    for mode in ("catapult", "plain"):
+        eng.mode = mode
+        for _ in range(2):
+            calls.update(dict.fromkeys(calls, 0))
+            with smoke.SearchSpy(hnsw, device_type="cpu") as hs:
+                eng.search(queries[:24], k=5, beam_width=8)
+            assert len(hs.iters) == len(eng.index.level_ids) + 1
+            assert calls == smoke.hnsw_launches(mode, hs.iters)
+
+
 @pytest.mark.parametrize("build", [
     "build_vamana", "make_catapult_state", "make_lsh", "make_buckets",
     "from_arrays", "catapult_state_from_numpy", "engine", "train_pq",
@@ -228,21 +298,24 @@ def test_public_constructors_default_to_the_card(build):
     ("tier", "sharded"), ("pq", 4), ("adapt", object()), ("tier", "tiered"),
     ("ingest", object()), ("tiered", object())])
 def test_unported_spec_fields_raise_capability_error(field, value):
-    """What this port lacks raises ``CapabilityError`` naming its ROADMAP
-    item: only ``ingest`` is left.  The sharded and tiered tiers are
-    accepted as the reference accepts them (``pq`` and ``adapt`` with
-    them too), and a ``tiered`` that is not a ``TieredSpec`` is refused
-    with the reference's ``ValueError``."""
+    """Every spec field the reference takes, the port takes: the sharded
+    and tiered tiers are accepted as the reference accepts them (``pq``
+    and ``adapt`` with them too), an ``IngestSpec`` is accepted, and an
+    ``ingest`` that is not an ``IngestSpec`` or a ``tiered`` that is not a
+    ``TieredSpec`` is refused with the reference's ``ValueError``."""
     kw = {field: value}
-    if field == "ingest":
-        with pytest.raises(tdb.CapabilityError, match="ROADMAP") as err:
-            tdb.IndexSpec(**kw)
-        assert "'ingest/'" in str(err.value)
-        return
-    if field == "tiered":
+    if field in ("ingest", "tiered"):
+        extra = (dict(tier="tiered", path="unused.d") if field == "tiered"
+                 else {})
+        msgs = []
         for pkg in (jdb, tdb):
-            with pytest.raises(ValueError, match="TieredSpec"):
-                pkg.IndexSpec(tier="tiered", path="unused.d", **kw)
+            with pytest.raises(ValueError, match=field) as err:
+                pkg.IndexSpec(**kw, **extra)
+            msgs.append(str(err.value).split(", got")[0])
+        assert msgs[0] == msgs[1]
+        if field == "ingest":
+            ing = tdb.IngestSpec(batch_size=32)
+            assert tdb.IndexSpec(ingest=ing).ingest is ing
         return
     if field in ("pq", "adapt"):
         assert getattr(tdb.IndexSpec(**kw), field) is value
@@ -290,13 +363,27 @@ def test_explain_metrics_and_request_spelling(corpus, queries, graph):
 
 @pytest.mark.parametrize("op", ["ingest_queue", "serve"])
 def test_unported_database_methods_raise(corpus, graph, op):
-    """``serve`` is ported; its ``ingest=`` pump is not, nor is the
-    ingest queue."""
-    port = tdb.create(tdb.IndexSpec(mode="diskann", **SPEC), corpus[0],
-                      prebuilt=graph, device="cpu")
-    kw = {"ingest": True} if op == "serve" else {}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(port, op)(**kw)
+    """``ingest_queue`` and ``serve(ingest=True)`` are ported: on a
+    database built from vectors both give an ``IngestQueue`` at the
+    ``IngestSpec()`` defaults, and its tickets resolve to the gids the
+    reference's twin assigns."""
+    from repro_torch.ingest import IngestQueue
+    dbs = [pkg.create(pkg.IndexSpec(mode="diskann", spare_capacity=16,
+                                    **SPEC), corpus[0], prebuilt=graph,
+                      **dev)
+           for pkg, dev in ((jdb, {}), (tdb, {"device": "cpu"}))]
+    if op == "serve":
+        queues = [d.serve(ingest=True).ingest for d in dbs]
+    else:
+        queues = [d.ingest_queue() for d in dbs]
+    assert isinstance(queues[1], IngestQueue)
+    assert queues[1].batch_size == queues[0].batch_size == 256
+    tickets = [q.put(corpus[0][:10] + 0.5, keys=list(range(10)))
+               for q in queues]
+    for q in queues:
+        assert q.flush() == 10
+    np.testing.assert_array_equal(tickets[1].gids, tickets[0].gids)
+    assert dict(dbs[1].keys._fwd) == dict(dbs[0].keys._fwd)
 
 
 def test_port_imports_neither_jax_nor_the_reference():

@@ -455,9 +455,11 @@ def test_unported_layouts_raise_before_opening(tmp_path, corpus, graph,
     """Sharded and tiered layouts open as the reference opens them: a
     directory the port creates ``sniff``s the same in both packages and
     each opens it to the same tier, rows and capabilities; their specs
-    are accepted as the reference's are.  The streaming-ingest state of
-    a database born empty, and an ingest spec, still raise
-    ``NotImplementedError`` naming ROADMAP queue 1's 'ingest/' item."""
+    are accepted as the reference's are.  A keys sidecar carrying the
+    bootstrap external-id indirection of a database born empty, and an
+    ``ingest.json`` sidecar, open in both packages to the same state: a
+    resumed ``BootstrapEngine`` over the same rows, the same persisted
+    ``IngestSpec``."""
     path = tmp_path / "x.ctpl"
     if case.startswith("tier_"):
         kw = dict(tier=case[5:], path=str(tmp_path / "x.d"))
@@ -488,9 +490,21 @@ def test_unported_layouts_raise_before_opening(tmp_path, corpus, graph,
                  key_gids=np.empty(0, np.int64),
                  ext2int=np.arange(4), ext_tomb=np.zeros(4, bool))
     else:
-        (tmp_path / "x.ctpl.ingest.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 'ingest/'"):
-        opened.append(tdb.open(str(path), device="cpu"))
+        (tmp_path / "x.ctpl.ingest.json").write_text('{"batch_size": 32}')
+    dbs = [tdb.open(str(path), device="cpu"), jdb.open(str(path))]
+    opened.extend(dbs)
+    port, ref = dbs
+    assert port.spec.ingest.to_dict() == ref.spec.ingest.to_dict()
+    assert port.n_active == ref.n_active and port.caps == ref.caps
+    if case == "ext2int":
+        from repro_torch.ingest import BootstrapEngine
+        assert isinstance(port.backend, BootstrapEngine)
+        assert port.n_active == 4 and port.backend.bootstrap_phase == "graph"
+        np.testing.assert_array_equal(port.backend._gen[1],
+                                      np.asarray(ref.backend._gen[1]))
+        np.testing.assert_array_equal(port.vectors, np.asarray(ref.vectors))
+    else:
+        assert port.spec.ingest == tdb.IngestSpec(batch_size=32)
 
 
 @pytest.mark.parametrize("call", ["io_stats", "io_stats_reset",

@@ -216,9 +216,11 @@ def test_serve_and_maintainer_refusals(corpus, graph):
         disk.serve(maintain=PolicyConfig())
     with pytest.raises(tdb.CapabilityError):
         disk.attach_maintainer()
-    for call in (lambda: disk.serve(ingest=True), disk.ingest_queue):
-        with pytest.raises(NotImplementedError, match="item 'ingest/'"):
-            call()
+    # ingest is ported: the queue rides on the frontend, at the
+    # IngestSpec() defaults
+    from repro_torch.ingest import IngestQueue
+    for q in (disk.serve(ingest=True).ingest, disk.ingest_queue()):
+        assert isinstance(q, IngestQueue) and q.batch_size == 256
     with pytest.raises(ValueError, match="catapult"):
         tdb.IndexSpec(mode="diskann", adapt=PolicyConfig())
     assert tdb.IndexSpec(adapt=PolicyConfig()).adapt == PolicyConfig()

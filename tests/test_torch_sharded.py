@@ -466,8 +466,8 @@ def test_database_surface_matches_reference(tmp_path, world, built, opened):
                                   "bad_version", "ingest_entry"])
 def test_manifest_refusals_match_reference(tmp_path, built, case):
     """What the reference's loader refuses the port refuses, with the
-    same exception type; a manifest ``ingest`` entry raises naming the
-    ``ingest/`` item."""
+    same exception type; a manifest ``ingest`` entry resumes the same
+    ``IngestSpec`` in both packages."""
     d = tmp_path / "m.d"
     shutil.copytree(built["ref"], d)
     man = json.loads((d / "manifest.json").read_text())
@@ -482,8 +482,16 @@ def test_manifest_refusals_match_reference(tmp_path, built, case):
     if case != "no_manifest":
         (d / "manifest.json").write_text(json.dumps(man))
     if case == "ingest_entry":
-        with pytest.raises(NotImplementedError, match="'ingest/'"):
-            tdb.open(str(d), device="cpu")
+        port = tdb.open(str(d), device="cpu")
+        ref = jdb.open(str(d))
+        try:
+            assert port.spec.ingest == tdb.IngestSpec(batch_size=64)
+            assert port.spec.ingest.to_dict() == ref.spec.ingest.to_dict()
+            assert port.backend.manifest_extra == {"ingest": {
+                "batch_size": 64}} == ref.backend.manifest_extra
+        finally:
+            port.close()
+            ref.close()
         return
     errors = []
     for load in (jss.ShardedDiskVectorSearchEngine.load,
