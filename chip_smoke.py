@@ -101,7 +101,21 @@ then:
    hierarchy, two passes each beside CPU twins, and a Proximity cache in
    front of a database born empty at ``benchmarks/bench_dynamic.py``'s
    settings, static and with inserts (the cached answers' recall beside
-   the database's; hits equal to a CPU twin cache's).
+   the database's; hits equal to a CPU twin cache's);
+8. the LM serving path, alone on the card right after phase 1:
+   gemma-2b at its published config (18 layers, d_model 2,048, 8 heads
+   over 1 KV head of 256, d_ff 16,384, vocab 256,000, bf16) through
+   ``python -m repro_torch.launch.serve`` at the reference driver's
+   defaults (6 requests, 2 slots, prompts of 6, 8 new tokens), then its
+   ``--rag`` path (256 docs of 8 tokens, catapult retrieval through
+   ``repro_torch.db``, k=2), then decode-step, prefill and tokens/s
+   times, the device idle share of a decode step and peak device
+   memory; and in a fourth process beside phases 2 to 5, one arch per
+   family at its published widths and a cut depth (gemma-2b, deepseek-
+   moe-16b, falcon-mamba-7b, zamba2-7b, seamless-m4t-large-v2,
+   internvl2-26b, gemma2-27b; printed as ``reduced:``): a prefill of 2 x
+   16 tokens and 4 teacher-forced decode steps in bf16 and in f32 on the
+   card against CPU twins with the same weights.
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
@@ -116,7 +130,8 @@ its shadow and gated-off batches run the diskann path; a disk search
 launches no ``gather_distance``, its rerank being on the host; a
 sharded or tiered search launches, shard by shard and tier by tier,
 what ``PathSpy`` records; the mesh search each virtual device's
-catapult RAM step).
+catapult RAM step; the LM path launches nothing, the RAG retrieval its
+Vamana build's and one catapult batch's).
 Any failed check exits non-zero.  Prints the
 card's name and power limit first, a ``{"kernels": [...]}`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -211,6 +226,32 @@ HNSW_N = 4_000                 # make_tripclick rows under HnswEngine
 # Zipf workload
 PROX = dict(capacity=512, tau=2.0, k=5, batch=50, insert=250)
 PROX_N, PROX_Q = 2_048, 300
+# the LM serving path: gemma-2b at its published config through
+# launch/serve at the reference driver's defaults (6 requests, 2 slots,
+# prompts of 6, 8 new tokens; --rag: 256 docs of 8 tokens, k=2) ...
+LM_ARCH = "gemma-2b"
+LM_STEPS = 16                  # timed decode steps at the engine's batch
+# ... and one arch per family at published widths and cut depth against
+# its CPU twin (same weights): a prefill of 2 x 16 tokens (vlm: 256
+# patches more), then 4 teacher-forced decode steps
+LM_TWINS = (("gemma-2b", dict(n_layers=2)),
+            ("deepseek-moe-16b", dict(n_layers=2)),      # dense + 1 MoE
+            ("falcon-mamba-7b", dict(n_layers=2)),
+            ("zamba2-7b", dict(n_layers=7)),    # 6 mamba2, shared, 1 tail
+            ("seamless-m4t-large-v2", dict(n_layers=2, n_enc_layers=2)),
+            ("internvl2-26b", dict(n_layers=2)),
+            ("gemma2-27b", dict(n_layers=2)))   # one local, one global
+LM_B, LM_S, LM_DECODE = 2, 16, 4
+# f32 card vs f32 CPU, a share of the largest real-vocab logit: the
+# reference's init (fan-in = depth for stacked weights) drives SSM states
+# to ~1e5, and falcon-mamba's prefill parts by 9.4e-4 on an H100 (the
+# other archs by <= 7e-4, most by <= 7e-5)
+LM_TOL32 = 2e-3
+# bf16: the card's bf16 logits may part from the CPU's f32 logits by at
+# most twice what the CPU's own bf16 logits do, plus 1% of max |logit|
+# (the CPU parity tests' rule, tests/test_torch_models.py)
+LM_BF16_FACTOR, LM_BF16_FLOOR = 2.0, 0.01
+LM_THREADS = 4                 # CPU twins' threads beside the other phases
 
 
 class SmokeFailure(RuntimeError):
@@ -657,6 +698,12 @@ def device_busy_ms(fn) -> float:
     """Device-busy ms of one call of ``fn``: the union of the card's
     kernel/copy intervals in a ``torch.profiler`` trace (0.0 if the
     profiler saw no device activity)."""
+    return device_activity(fn)[0]
+
+
+def device_activity(fn) -> tuple[float, int]:
+    """``device_busy_ms`` of one call of ``fn``, and the number of device
+    kernel/copy events in its trace."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -671,7 +718,7 @@ def device_busy_ms(fn) -> float:
         if end > covered:
             busy += end - max(start, covered)
             covered = end
-    return busy / 1e3
+    return busy / 1e3, len(spans)
 
 
 def idle_share(database, queries, **kw) -> dict:
@@ -4058,6 +4105,302 @@ def deploy_consolidate(vec, graph, queries, rng, paths):
     return out
 
 
+def lm_lines(text: str) -> list:
+    """The ``[serve] req i: ...`` lines of ``launch/serve``'s output."""
+    return [ln for ln in text.splitlines() if ln.startswith("[serve] req ")]
+
+
+def run_serve(argv) -> str:
+    """``python -m repro_torch.launch.serve`` in this process, its
+    standard output captured and echoed."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve.main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return buf.getvalue()
+
+
+def phase_serve(seed: int, dev) -> dict:
+    """The LM serving path at gemma-2b's published config: ``launch/
+    serve``'s ``ServingEngine`` path and its ``--rag`` path as a user runs
+    them (launch counts set to 0 just before each, read just after: the
+    LM launches no hand-written kernel, the retrieval's Vamana build and
+    catapult search launch what ``build_spy`` and ``expected_launches``
+    say), then the measurements on a model of the same config: decode
+    step wall ms and device busy ms at the engine's batch, prefill ms,
+    tokens/s through ``ServingEngine.run``, peak device memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import padded_vocab
+    from repro_torch.serving import rag
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    cfg = get_config(LM_ARCH)
+    out = {"launches": {}}
+    t0 = time.perf_counter()
+    text, made = counted(lambda: run_serve(["--arch", LM_ARCH]))
+    out["serve_s"] = time.perf_counter() - t0
+    reqs = lm_lines(text)
+    check(len(reqs) == 6, f"serve printed {len(reqs)} requests, not 6")
+    for ln in reqs:
+        toks = json.loads(ln.split(": ", 1)[1])
+        check(1 <= len(toks) <= 9 and all(0 <= t < cfg.vocab_size
+                                          for t in toks),
+              f"serve: bad tokens {ln}")
+    check(not any(made.values()), f"the LM path launched {made}")
+    out["launches"]["serve_lm"] = made
+    out["serve_tok_s"] = float(text.rsplit(" tokens, ", 1)[1].split()[0])
+
+    hops = []
+    real = rag.RagPipeline.retrieve
+
+    def retrieve(self, *a, **kw):
+        ids, st = real(self, *a, **kw)
+        hops.append(int(st.hops.max()))
+        return ids, st
+
+    rag.RagPipeline.retrieve = retrieve
+    try:
+        t0 = time.perf_counter()
+        with build_spy() as spy:
+            text, made = counted(lambda: run_serve(["--arch", LM_ARCH,
+                                                    "--rag"]))
+        out["rag_s"] = time.perf_counter() - t0
+    finally:
+        rag.RagPipeline.retrieve = real
+    want = add_launches(spy.expected(), expected_launches(
+        "catapult", "unfused", hops))
+    check(made == want, f"RAG launches {made} against {want}")
+    check(made["lsh_hash"] > 0 and made["gather_distance"] > 0,
+          "the RAG path launched no lsh_hash or gather_distance")
+    out["launches"]["serve_rag_build"] = spy.expected()
+    out["launches"]["serve_rag_search"] = expected_launches(
+        "catapult", "unfused", hops)
+    for ln in lm_lines(text):
+        docs = json.loads(ln.split("docs=")[1].split(" tokens=")[0])
+        toks = json.loads(ln.split(" tokens=")[1])
+        check(len(docs) == 2 and all(0 <= d < 256 for d in docs)
+              and len(toks) == 8
+              and all(0 <= t < cfg.vocab_size for t in toks),
+              f"RAG: bad answer {ln}")
+    check(len(lm_lines(text)) == 6, "RAG: not 6 answers")
+
+    # measurements on a model of the same config and seed; device memory
+    # counted above what the process held before (phase 1's tables)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    torch.cuda.synchronize()
+    out["param_gb"] = sum(p.numel() * p.element_size()
+                          for p in model.parameters()) / 1e9
+    out["init_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, 6) for _ in range(6)]
+    eng = ServingEngine(cfg, model, slots=2, max_len=6 + 8 + 2)
+    t0 = time.perf_counter()
+    done = eng.run([Request(prompt=p, max_new_tokens=8) for p in prompts])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    total = sum(len(r.out) for r in done)
+    out.update(engine_tokens=total, engine_s=run_s,
+               engine_tok_s=total / run_s)
+
+    with torch.no_grad():
+        cache = M.init_cache(cfg, 2, 6 + 8 + 2, dev)
+        toks = torch.full((2, 1), 7, dtype=torch.int32, device=dev)
+
+        def step(i=[0]):
+            M.decode_step(cfg, model, toks, cache, 6 + i[0] % 8)
+            i[0] += 1
+
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(LM_STEPS):
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        busy, events = device_activity(step)
+        wall = float(np.median(walls))
+        out.update(decode_ms=wall, decode_ms_min=float(np.min(walls)),
+                   decode_busy_ms=busy, decode_device_events=events,
+                   decode_idle_share=1.0 - busy / wall if busy else None,
+                   decode_tok_s=2 * 1e3 / wall)
+        for name, shape in (("prefill", (2, 6)), ("prefill_rag", (6, 22))):
+            batch = {"tokens": torch.as_tensor(
+                rng.integers(2, cfg.vocab_size, shape), device=dev)}
+            c = M.init_cache(cfg, shape[0], shape[1] + 8, dev)
+            walls = []
+            for _ in range(6):              # the first call warms up
+                t0 = time.perf_counter()
+                logits, _ = M.prefill(cfg, model, batch, c)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            out[f"{name}_ms"] = float(np.median(walls[1:]))
+            out[f"{name}_busy_ms"] = device_busy_ms(
+                lambda: M.prefill(cfg, model, batch, c))
+            check(tuple(logits.shape)
+                  == (shape[0], 1, padded_vocab(cfg.vocab_size))
+                  and bool(torch.isfinite(logits.float()).all()),
+                  f"{name}: logits {tuple(logits.shape)} not finite")
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del model, eng, cache
+    torch.cuda.empty_cache()
+    print(f"serve {LM_ARCH} (published config, {out['param_gb']:.2f} GB "
+          f"of bf16 weights): launch/serve {out['serve_tok_s']:.1f} tok/s; "
+          f"ServingEngine {total} tokens in {run_s:.2f} s "
+          f"({out['engine_tok_s']:.1f} tok/s); decode step {wall:.2f} ms "
+          f"(min {out['decode_ms_min']:.2f}) at batch 2, device busy "
+          f"{busy:.3f} ms in {events} kernels/copies, idle share "
+          f"{out['decode_idle_share']:.3f}; "
+          f"prefill 2x6 {out['prefill_ms']:.2f} ms (busy "
+          f"{out['prefill_busy_ms']:.3f}), 6x22 {out['prefill_rag_ms']:.2f} "
+          f"ms (busy {out['prefill_rag_busy_ms']:.3f}); peak device memory "
+          f"{out['init_peak_gb']:.2f} GB at init, {out['peak_gb']:.2f} GB "
+          f"serving; RAG launches {made}", flush=True)
+    return out
+
+
+def copy_model(src, cfg, device):
+    """A ``Model`` of ``cfg`` on ``device`` with ``src``'s weights (cast
+    to ``cfg.dtype``; bf16 to f32 is exact)."""
+    from repro_torch.models import model as M
+    dst = M.Model(cfg, device)
+    with torch.no_grad():
+        for d, s_ in zip(dst.parameters(), src.parameters()):
+            d.copy_(s_)
+    return dst
+
+
+def lm_inputs(cfg, seed: int = 0):
+    """A prefill batch of LM_B x LM_S tokens (vlm: patches, encdec:
+    frames) and LM_DECODE teacher-forced tokens, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (LM_B, LM_S))}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (LM_B, cfg.n_frontend_tokens, cfg.frontend_dim)).astype(
+            np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (LM_B, LM_S, cfg.frontend_dim)).astype(np.float32)
+    toks = [rng.integers(0, cfg.vocab_size, (LM_B, 1))
+            for _ in range(LM_DECODE)]
+    return batch, toks
+
+
+def lm_logits(cfg, model, batch, toks) -> list:
+    """Prefill logits, then each teacher-forced decode step's, as f32
+    numpy on the host, over the real vocab (the padded columns hold
+    -1e9)."""
+    from repro_torch.models import model as M
+    dev = model.device
+    prefix = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    with torch.no_grad():
+        cache = M.init_cache(cfg, LM_B, LM_S + prefix + LM_DECODE, dev)
+        logits, cache = M.prefill(cfg, model, {
+            k: torch.as_tensor(v, device=dev) for k, v in batch.items()},
+            cache)
+        outs = [logits]
+        for i, t in enumerate(toks):
+            logits, cache = M.decode_step(
+                cfg, model, torch.as_tensor(t, device=dev), cache,
+                LM_S + prefix + i)
+            outs.append(logits)
+    return [o[..., :cfg.vocab_size].float().cpu().numpy() for o in outs]
+
+
+def share(got, want) -> float:
+    """max |got - want| as a share of max |want|."""
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def lm_twin(arch: str, cut: dict, seed: int, dev) -> dict:
+    """One arch at its published widths and ``cut`` depth: a bf16 model
+    drawn on the card, its f32 upcast on the card, and CPU twins of both
+    (the same weights).  Prefill and every decode step: the f32 card
+    logits within LM_TOL32 of the f32 CPU's, the bf16 card logits within
+    the bf16 rule of the f32 CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    full = get_config(arch)
+    cfg16 = dataclasses.replace(full, **cut)
+    cfg32 = dataclasses.replace(cfg16, dtype="float32")
+    print("reduced: " + arch + " " + ", ".join(
+        f"{k} {getattr(full, k)} -> {v}" for k, v in cut.items())
+        + " (published widths)", flush=True)
+    batch, toks = lm_inputs(cfg16, seed)
+    t0 = time.perf_counter()
+    card16 = M.init(cfg16, torch.Generator(device=dev).manual_seed(seed),
+                    dev)
+    res = {"params": sum(p.numel() for p in card16.parameters())}
+    res["card16"] = lm_logits(cfg16, card16, batch, toks)
+    res["cpu16"] = lm_logits(cfg16, copy_model(card16, cfg16, "cpu"),
+                             batch, toks)
+    res["cpu32"] = lm_logits(cfg32, copy_model(card16, cfg32, "cpu"),
+                             batch, toks)
+    card32 = copy_model(card16, cfg32, dev)
+    del card16
+    res["card32"] = lm_logits(cfg32, card32, batch, toks)
+    del card32
+    torch.cuda.empty_cache()
+    agree = dict(prefill=[], decode=[])
+    out = {"params": res["params"], "err32": [], "err16": [],
+           "err16_cpu": []}
+    for i, want in enumerate(res["cpu32"]):
+        check(np.isfinite(res["card16"][i]).all()
+              and np.isfinite(res["card32"][i]).all(),
+              f"{arch}: non-finite logits")
+        check(res["card16"][i].shape == want.shape
+              == (LM_B, 1, cfg16.vocab_size),
+              f"{arch}: logits shaped {res['card16'][i].shape}")
+        e32 = share(res["card32"][i], want)
+        e16 = share(res["card16"][i], want)
+        own = share(res["cpu16"][i], want)
+        out["err32"].append(e32)
+        out["err16"].append(e16)
+        out["err16_cpu"].append(own)
+        check(e32 <= LM_TOL32, f"{arch} step {i}: f32 card vs CPU {e32:.3g}"
+                               f" > {LM_TOL32}")
+        check(e16 <= LM_BF16_FACTOR * own + LM_BF16_FLOOR,
+              f"{arch} step {i}: bf16 card {e16:.3g} against the CPU's "
+              f"own bf16 {own:.3g}")
+        agree["prefill" if i == 0 else "decode"].append(
+            float((res["card16"][i].argmax(-1) == want.argmax(-1)).mean()))
+    out["argmax_agree_bf16"] = agree
+    out["seconds"] = time.perf_counter() - t0
+    print(f"{arch} twin ({res['params'] / 1e9:.2f} B params): f32 card vs "
+          f"CPU max share {max(out['err32']):.3g} (<= {LM_TOL32}); bf16 "
+          f"card {max(out['err16']):.3g} against the CPU's own bf16 "
+          f"{max(out['err16_cpu']):.3g} (prefill, 4 decode steps); "
+          f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def phase_lm_twins(seed: int, dev) -> dict:
+    """The fourth card process: every LM_TWINS arch against its CPU twin
+    (the LM launches no hand-written kernel: counts must stay 0)."""
+    torch.set_num_threads(LM_THREADS)
+    print("reduced: arctic-480b left out on the card (one MoE layer alone "
+          "holds over 13 B parameters); its dense residual is held by the "
+          "CPU parity tests", flush=True)
+    t0 = time.perf_counter()
+    archs, made = counted(lambda: {
+        arch: lm_twin(arch, cut, seed, dev) for arch, cut in LM_TWINS})
+    check(not any(made.values()), f"the LM twins launched {made}")
+    out = {"lm_twins": {"archs": archs, "launches": {"lm_twins": made},
+                        "seconds": time.perf_counter() - t0}}
+    print(f"phase lm twins: {out['lm_twins']['seconds']:.1f} s", flush=True)
+    return out
+
+
 def build_shift_graph(path: str) -> None:
     """The adapt phase's graph: ``build_vamana`` of
     ``make_shifted_zipf(kind="sudden")``'s corpus with ``IndexSpec()``'s
@@ -4115,8 +4458,9 @@ class TierPhases:
     of host RobustPrune, its 1M shard searches minutes of host fetch),
     and ``--ingest`` (a third process) this slice's ingest and baseline
     phases (``phase_ingest_all``; every cutover, growth and consolidate
-    is a Vamana rebuild, host RobustPrune again); run in turn they would
-    push the run past its time limit.  Each one's launch counts come
+    is a Vamana rebuild, host RobustPrune again), and ``--models`` (a
+    fourth) the LM twins (``phase_lm_twins``; CPU twins at published
+    widths); run in turn they would push the run past its time limit.  Each one's launch counts come
     back in its JSON.  ``result()`` waits for it, prints its log and
     reads the JSON; leaving the ``with`` stops it."""
 
@@ -4168,6 +4512,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # the run's own second process
     ap.add_argument("--ingest", default=None, metavar="JSON",
                     help=argparse.SUPPRESS)   # the run's own third process
+    ap.add_argument("--models", default=None, metavar="JSON",
+                    help=argparse.SUPPRESS)   # the run's own fourth process
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -4205,29 +4551,41 @@ def main() -> int:
         Path(args.ingest).write_text(json.dumps(
             phase_ingest_all(dev), default=json_default))
         return 0
+    if args.models:
+        Path(args.models).write_text(json.dumps(
+            phase_lm_twins(args.seed, dev), default=json_default))
+        return 0
     print(f"kernels built in {build_s:.1f} s into {build_dir}", flush=True)
     with tempfile.TemporaryDirectory() as tmp, \
             ShiftGraph(Path(tmp) / "shift_graph.npz") as shift_graph, \
             TierPhases(Path(tmp) / "tiers.json") as tier_phases, \
             TierPhases(Path(tmp) / "ingest.json",
-                       "--ingest") as ingest_phases:
+                       "--ingest") as ingest_phases, \
+            TierPhases(Path(tmp) / "models.json",
+                       "--models") as lm_phases:
         return run_phases(args, card, build_dir, build_s, t_run, dev,
-                          shift_graph, tier_phases, ingest_phases)
+                          shift_graph, (tier_phases, ingest_phases,
+                                        lm_phases))
 
 
 def run_phases(args, card, build_dir, build_s, t_run, dev,
-               shift_graph, tier_phases, ingest_phases) -> int:
-    """Every phase, in order (the tier phases and the sharded deployment
-    in a second process, the ingest and baseline phases in a third,
-    both beside phases 2 to 5), then the kernels line and the device
-    line."""
+               shift_graph, helpers) -> int:
+    """Every phase, in order (the LM serving phase alone after phase 1;
+    then the tier phases and the sharded deployment in a second process,
+    the ingest and baseline phases in a third and the LM twins in a
+    fourth, all beside phases 2 to 5), then the kernels line and the
+    device line."""
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     vectors = torch.randn((N, D), generator=gen, device=dev)
     kernels = phase_kernels(vectors, gen, dev)
     kernels.update(phase_pq_kernels(gen, dev))
     kernels["l2_distance"] = phase_l2_distance(vectors, dev)
-    tier_phases.start()
-    ingest_phases.start()
+    t0 = time.perf_counter()
+    serve = phase_serve(args.seed, dev)
+    serve["seconds"] = time.perf_counter() - t0
+    print(f"phase serve: {serve['seconds']:.1f} s", flush=True)
+    for helper in helpers:
+        helper.start()
     main_path = phase_main_path(args.seed, dev)
     t0 = time.perf_counter()
     filtered = phase_filtered(dev)
@@ -4239,8 +4597,9 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
     print(f"phase adapt shift: {shift['seconds']:.1f} s", flush=True)
     deploy = phase_deployment(vectors, gen, args.seed, dev,
                               {k: v["ms"] for k, v in kernels.items()})
-    tiers = tier_phases.result()
-    tiers.update(ingest_phases.result())
+    tiers = helpers[0].result()
+    for helper in helpers[1:]:
+        tiers.update(helper.result())
 
     sources = {"fused_hop_l2": ("fused_hop.cu", "fused_hop.py:160"),
                "fused_hop_pq": ("fused_hop_pq.cu", "fused_hop.py:204"),
@@ -4249,7 +4608,8 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
                "gather_distance": ("gather_distance.cu",
                                    "gather_distance.py:35"),
                "l2_distance": ("l2_distance.cu", "l2_distance.py:35")}
-    by_path = {**main_path["launches"], **main_path["pq"]["launches"],
+    by_path = {**serve["launches"],
+               **main_path["launches"], **main_path["pq"]["launches"],
                **main_path["mutations"]["launches"],
                **main_path["disk"]["launches"],
                **main_path["modes"]["launches"], **filtered["launches"],
@@ -4283,7 +4643,7 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels,
-             "main_path": main_path, "filtered": filtered,
+             "serve": serve, "main_path": main_path, "filtered": filtered,
              "adapt_shift": shift, "tiers": tiers,
              "deployment": deploy, "ptxas": ptxas,
              "kernels_line": line}, indent=1, default=str))

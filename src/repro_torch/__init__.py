@@ -25,10 +25,61 @@ same layout so each module's counterpart is easy to find:
                  ``IngestQueue`` that interleaves upserts with serving,
 * ``data/``    — synthetic workloads.
 
+The language-model serving path sits beside them: ``configs/`` (the ten
+assigned architectures), ``models/`` (their inference in plain PyTorch),
+``serving/``'s ``ServingEngine`` and ``RagPipeline``, and
+``launch/serve.py``.
+
 Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU; asking for the card where there is none raises.  The
 package imports ``torch`` and numpy, never ``jax`` or ``repro``.
+
+Public API, as the reference's: the ``repro_torch.db`` facade, its types
+re-exported here, and the internal tier constructors and serving /
+adaptation classes as deprecation shims.  Everything resolves lazily
+(PEP 562), so ``import repro_torch`` stays free of the engine stack.
 """
 from repro_torch.device import resolve_device
 
-__all__ = ["resolve_device"]
+__version__ = "1.0.0"
+
+# name -> defining module: the reference's documented symbol set
+# (tests/test_torch_api_surface.py pins it)
+_EXPORTS = {
+    # the facade (preferred)
+    "db": "repro_torch.db",
+    "Database": "repro_torch.db",
+    "IndexSpec": "repro_torch.db",
+    "SearchRequest": "repro_torch.db",
+    "SearchResult": "repro_torch.db",
+    "Caps": "repro_torch.db",
+    "CapabilityError": "repro_torch.db",
+    "create": "repro_torch.db",
+    "open": "repro_torch.db",
+    "sniff": "repro_torch.db",
+    # deprecation shims: the internal layer behind the facade
+    "VectorSearchEngine": "repro_torch.core.engine",
+    "DiskVectorSearchEngine": "repro_torch.store.io_engine",
+    "ShardedDiskVectorSearchEngine": "repro_torch.store.sharded_store",
+    "VectorSearchFrontend": "repro_torch.serving.engine",
+    "CatapultMaintainer": "repro_torch.adapt.maintainer",
+    "PolicyConfig": "repro_torch.adapt.policy",
+}
+
+__all__ = sorted(_EXPORTS) + ["resolve_device"]
+
+
+def __getattr__(name):
+    import importlib
+    target = _EXPORTS.get(name)
+    if target is None:
+        raise AttributeError(
+            f"module 'repro_torch' has no attribute {name!r}")
+    module = importlib.import_module(target)
+    value = module if name == "db" else getattr(module, name)
+    globals()[name] = value          # cache: resolve once per process
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -22,6 +22,11 @@ port's state on a given device:
   level's ids and graph, and the entry, as ``HnswIndex`` on a device
   (each level is a Vamana build, which agrees across the packages on
   >= 99% of rows only),
+* a language model's parameters (``model_params_from_numpy``): the
+  reference's ``M.init`` tree as numpy arrays, its stacked leaves split
+  into the port's per-layer blocks, and its decode cache
+  (``model_cache_from_numpy``), so decode parity can start from one
+  cache,
 * the graph needs no helper: pass ``prebuilt=(adjacency, medoid)`` to
   ``repro_torch.db.create``; a filtered graph crosses as
   ``prebuilt=(adjacency, medoid, label_entries)``, with the per-row
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.adapt import stats as ts
 from repro_torch.core import buckets as bk
@@ -40,6 +46,7 @@ from repro_torch.core.lsh import LSHParams
 from repro_torch.core.lsh_apg import LshApgIndex
 from repro_torch.core.pq import PQCodebook
 from repro_torch.device import resolve_device
+from repro_torch.models import model as lm
 
 
 def catapult_state_from_numpy(hyperplanes: np.ndarray, bucket_arrays,
@@ -116,3 +123,58 @@ def set_maintainer_counters(maintainer, counters: dict) -> None:
     maintainer._set_engines(bool(maintainer._gate_on))
     maintainer._set_override(False if maintainer._shadow else
                              True if maintainer._probing else None)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A copy of a numpy array (bfloat16 included, as ``ml_dtypes``
+    holds it) on ``device``, bit for bit.  Always a copy: the caller's
+    buffer (possibly one the reference's runtime owns) is never written
+    by the port's in-place cache updates."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.uint16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.tensor(a).to(device)
+
+
+def model_params_from_numpy(cfg, tree, device="cuda") -> "lm.Model":
+    """The reference's ``M.init(cfg, key)`` tree (numpy leaves) -> the
+    port's ``Model`` on ``device``: every stacked leaf's row i goes to
+    layer i of the matching ``ModuleList``; every parameter must be
+    filled exactly once."""
+    model = lm.Model(cfg, device)
+    filled = []
+
+    def load(module, sub, take):
+        for name, value in sub.items():
+            child = getattr(module, name)
+            if isinstance(child, nn.ModuleList):
+                for i, blk in enumerate(child):
+                    load(blk, value, lambda a, i=i, t=take: t(a)[i])
+            elif isinstance(value, dict):
+                load(child, value, take)
+            else:
+                src = _tensor(take(value), child.device)
+                if src.shape != child.shape or src.dtype != child.dtype:
+                    raise ValueError(f"{name}: {tuple(src.shape)} "
+                                     f"{src.dtype} against "
+                                     f"{tuple(child.shape)} {child.dtype}")
+                with torch.no_grad():
+                    child.copy_(src)
+                filled.append(child)
+
+    load(model, tree, lambda a: a)
+    if len({id(p) for p in filled}) != len(filled) or \
+            len(filled) != len(list(model.parameters())):
+        raise ValueError(f"the tree filled {len(filled)} of "
+                         f"{len(list(model.parameters()))} parameters")
+    return model
+
+
+def model_cache_from_numpy(cfg, tree, device="cuda") -> dict:
+    """A reference decode cache (``M.init_cache`` layout, numpy leaves)
+    -> the port's cache dict on ``device``, the same names and bytes."""
+    device = resolve_device(device)
+    return {k: (model_cache_from_numpy(cfg, v, device)
+                if isinstance(v, dict) else _tensor(v, device))
+            for k, v in tree.items()}

@@ -18,7 +18,7 @@ from repro_torch.core.filters import (build_stitched_graph,
                                       refresh_label_entries)
 from repro_torch.core.insert import consolidate, delete, insert_batch
 from repro_torch.core.lsh_apg import LshApgIndex, build_lsh_apg, entry_points
-from repro_torch.core.engine import (RamStore, SearchStats,
+from repro_torch.core.engine import (DiskStore, RamStore, SearchStats,
                                      VectorSearchEngine, brute_force_knn,
                                      recall_at_k)
 from repro_torch.core.lsh import LSHParams, hash_codes, make_lsh
@@ -30,7 +30,7 @@ __all__ = [
     "BucketState", "evict_ids", "make_buckets", "lookup", "publish",
     "CatapultState", "catapulted_lookup", "make_catapult_state",
     "SearchStats", "VectorSearchEngine", "brute_force_knn", "recall_at_k",
-    "RamStore", "VamanaParams", "build_vamana", "medoid_index",
+    "RamStore", "DiskStore", "VamanaParams", "build_vamana", "medoid_index",
     "robust_prune", "LSHParams", "hash_codes", "make_lsh",
     "build_stitched_graph", "label_entry_points", "make_filter_mask_fn",
     "refresh_label_entries", "consolidate", "delete", "insert_batch",

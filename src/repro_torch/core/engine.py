@@ -71,14 +71,20 @@ class RamStore:
         return cls(np.zeros((capacity, dim), np.float32),
                    np.full((capacity, degree), -1, np.int32))
 
+    def flush(self) -> None:          # RAM is always "durable enough"
+        pass
+
+    def close(self) -> None:
+        pass
+
 
 class DiskStore:
     """Disk-resident backend: views into a block-aligned store file.
 
     ``vectors``/``adjacency`` are strided memmap views into per-node
     blocks (``repro_torch.store.layout``), so insert-time graph surgery
-    writes disk pages in place; the disk engine persists them through
-    ``block_store.flush``.
+    writes disk pages in place; ``flush`` persists them plus header
+    metadata.
     """
 
     def __init__(self, block_store):
@@ -92,6 +98,14 @@ class DiskStore:
         from repro_torch.store import layout   # lazy: breaks an import cycle
         return cls(layout.create_store(path, capacity=capacity, dim=dim,
                                        degree=degree, has_labels=has_labels))
+
+    @classmethod
+    def open(cls, path: str, mode: str = 'r+') -> 'DiskStore':
+        from repro_torch.store import layout
+        return cls(layout.open_store(path, mode=mode))
+
+    def flush(self, **header_updates) -> None:
+        self.block_store.flush(**header_updates)
 
     def close(self) -> None:
         self.block_store.close()

@@ -4,3 +4,6 @@
 Nothing here touches CUDA at import: ``_build`` compiles and loads a
 kernel the first time a wrapper is handed a CUDA tensor.
 """
+from repro_torch.kernels import ops, ref
+
+__all__ = ["ops", "ref"]

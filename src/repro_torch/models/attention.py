@@ -1,0 +1,154 @@
+"""Attention: GQA + sliding-window + softcap, in dense and flash forms.
+
+Port of ``repro/models/attention.py``.  The per-layer *window* is data
+(an int per layer; see ``ArchConfig.layer_windows``), so local and
+global layers share one block.  ``flash_attention`` is the reference's
+blockwise online softmax written as a plain PyTorch loop over query and
+KV blocks; ``dense_attention`` is the direct form (decode steps,
+cross-attention, short sequences).  Numerics as in the reference: scores
+in f32, softcap before the additive mask (``NEG_INF = -2**30``), GQA by
+head-group reshape (no KV repetition).  ``scaled_dot_product_attention``
+is not used: it has no softcap, and its masking differs.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.layers import Leaves, rope, softcap
+
+NEG_INF = -2.0 ** 30
+
+
+class Attention(Leaves):
+    def __init__(self, d_model, n_heads, n_kv, head_dim, dtype, device,
+                 stack=None):
+        super().__init__(dtype, device, stack)
+        self.leaf("wq", (d_model, n_heads * head_dim), 1.0)
+        self.leaf("wk", (d_model, n_kv * head_dim), 1.0)
+        self.leaf("wv", (d_model, n_kv * head_dim), 1.0)
+        self.leaf("wo", (n_heads * head_dim, d_model), 1.0)
+
+
+def _mask(q_pos, k_pos, window, causal):
+    """(Sq, Sk) additive f32 mask: causal + sliding window."""
+    dq = q_pos[:, None] - k_pos[None, :]
+    ok = (dq >= 0) if causal else torch.ones_like(dq, dtype=torch.bool)
+    ok = ok & (dq < window)          # window >= seq_len means global
+    return torch.where(ok, 0.0, NEG_INF).float()
+
+
+def dense_attention(q, k, v, q_pos, k_pos, *, window, causal=True,
+                    attn_softcap=None):
+    """q: (B, Sq, H, Dh); k/v: (B, Sk, KV, Dh)."""
+    b, sq, h, dh = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, sq, kv, g, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float()
+    scores = scores / (dh ** 0.5)
+    scores = softcap(scores, attn_softcap)
+    scores = scores + _mask(q_pos, k_pos, window, causal)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", w, v)
+    return out.reshape(b, sq, h, dh)
+
+
+def flash_attention(q, k, v, q_pos, k_pos, *, window, causal=True,
+                    attn_softcap=None, block_q=512, block_k=512):
+    """Blockwise online-softmax attention: peak memory per step is
+    (B, KV, G, block_q, block_k), independent of S.  Both S_q and S_k
+    must divide their block sizes (callers pad)."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    kv = k.shape[2]
+    g = h // kv
+    block_q = min(block_q, sq)
+    block_k = min(block_k, sk)
+    if sq % block_q or sk % block_k:
+        raise ValueError(f"sequence lengths {sq}, {sk} must divide the "
+                         f"blocks {block_q}, {block_k}")
+    # (B, S, ...) -> (B, KV, G, S, Dh) for q, (B, KV, S, Dh) for k/v
+    qh = q.reshape(b, sq, kv, g, dh).permute(0, 2, 3, 1, 4)
+    kh = k.permute(0, 2, 1, 3)
+    vh = v.permute(0, 2, 1, 3)
+    outs = []
+    for q0 in range(0, sq, block_q):
+        qblk = qh[:, :, :, q0: q0 + block_q]
+        qp = q_pos[q0: q0 + block_q]
+        m = torch.full((b, kv, g, block_q), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, kv, g, block_q), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((b, kv, g, block_q, dh), dtype=torch.float32,
+                          device=q.device)
+        for k0 in range(0, sk, block_k):
+            kblk = kh[:, :, k0: k0 + block_k]
+            vblk = vh[:, :, k0: k0 + block_k]
+            s = torch.einsum("bkgqd,bksd->bkgqs", qblk, kblk)
+            s = s.float() / (dh ** 0.5)
+            s = softcap(s, attn_softcap)
+            s = s + _mask(qp, k_pos[k0: k0 + block_k], window, causal)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bksd->bkgqd", p.to(vblk.dtype), vblk).float()
+            m = m_new
+        outs.append((acc / torch.clamp(l, min=1e-30)[..., None])
+                    .to(q.dtype))
+    out = torch.cat(outs, dim=3)                  # (B, KV, G, Sq, Dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
+
+
+def best_attention(q, k, v, q_pos, k_pos, *, window, causal=True,
+                   attn_softcap=None):
+    """Dense below 1,024 positions (or off the 512 grid), flash above:
+    the score matrix must never materialize at prefill/train scale."""
+    sq, sk = q.shape[1], k.shape[1]
+    if sq >= 1024 and sk >= 1024 and sq % 512 == 0 and sk % 512 == 0:
+        return flash_attention(q, k, v, q_pos, k_pos, window=window,
+                               causal=causal, attn_softcap=attn_softcap)
+    return dense_attention(q, k, v, q_pos, k_pos, window=window,
+                           causal=causal, attn_softcap=attn_softcap)
+
+
+def write_at(buf, new, pos: int):
+    """``lax.dynamic_update_slice_in_dim(buf, new, pos, 1)`` in place:
+    the start clamps so the write fits, as XLA clamps it."""
+    s = new.shape[1]
+    start = min(max(int(pos), 0), buf.shape[1] - s)
+    buf[:, start: start + s] = new
+
+
+def attention_block(params, x, positions, *, cfg, window, kv_cache=None,
+                    cache_pos=None):
+    """Full projection + RoPE + attention (+ the KV-cache update).
+
+    kv_cache: dict(k=(B, Smax, KV, Dh), v=...) or None; written IN PLACE
+    at ``cache_pos`` for every batch row (the reference writes all rows
+    at one offset too).  Returns (out, cache).
+    """
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = (x @ params.wq).reshape(b, s, h, dh)
+    k = (x @ params.wk).reshape(b, s, kv, dh)
+    v = (x @ params.wv).reshape(b, s, kv, dh)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is not None:
+        ck, cv = kv_cache["k"], kv_cache["v"]
+        write_at(ck, k, cache_pos)
+        write_at(cv, v, cache_pos)
+        k_pos = torch.arange(ck.shape[1], device=x.device)
+        # unwritten slots all have k_pos > max(q positions): the causal
+        # term of the mask hides them
+        out = dense_attention(q, ck, cv, positions, k_pos, window=window,
+                              causal=True, attn_softcap=cfg.attn_softcap)
+    else:
+        fn = flash_attention if s > 1 else dense_attention
+        out = fn(q, k, v, positions, positions, window=window, causal=True,
+                 attn_softcap=cfg.attn_softcap)
+    out = out.reshape(b, s, h * dh)
+    return out @ params.wo, kv_cache

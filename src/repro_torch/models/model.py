@@ -1,0 +1,316 @@
+"""Model dispatcher: one init/forward/cache API over all families.
+
+Port of ``repro/models/model.py``.  Everything is driven by
+``ArchConfig.family``:
+
+  dense | moe | vlm  -> attn_stack decoder (per-layer window list)
+  ssm                -> mamba1 stack (attention-free)
+  hybrid             -> zamba2 mamba2 stack + shared attention block
+  encdec             -> encoder_stack + decoder_xattn_stack
+
+``Model(cfg)`` holds the parameters under the reference's tree names
+(``embed.table``, ``layers.3.attn.wq``, ...; a stacked reference leaf
+is a ``ModuleList`` here), ``init`` fills them from a
+``torch.Generator`` as the reference's ``init_from_decl`` draws, and
+``convert.model_params_from_numpy`` fills them from the reference's own
+``M.init`` tree.  The entry points take the model where the reference
+takes ``params``: ``forward``, ``loss_fn``, ``prefill`` and
+``decode_step``.  Caches are dicts of stacked tensors with the
+reference's names and shapes (``init_cache``); ``prefill`` and
+``decode_step`` write them in place and return them, so the reference's
+``_merge_hybrid_cache`` (which reassembles scanned outputs) has no
+counterpart.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tf
+from repro_torch.models.layers import (DTYPES, Embed, Leaves, embed_lookup,
+                                       init_leaves, rms_norm,
+                                       scale_embedding, unembed)
+
+
+class Model(Leaves):
+    """Every parameter of one architecture, on one device."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        dtype = DTYPES[cfg.dtype]
+        device = resolve_device(device)
+        super().__init__(dtype, device, None)
+        self.cfg = cfg
+        self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype, device)
+        self.leaf("final_norm", (cfg.d_model,))
+        if cfg.family in ("dense", "vlm"):
+            self.layers = tf.stack(tf.DenseBlock, cfg, cfg.n_layers, dtype,
+                                   device)
+        elif cfg.family == "moe":
+            self.layers = tf.stack(tf.MoEBlock, cfg,
+                                   cfg.n_layers - cfg.first_dense_layers,
+                                   dtype, device)
+            if cfg.first_dense_layers:
+                self.dense_layers = tf.stack(
+                    tf.DenseBlock, _with_ff(cfg, cfg.first_dense_d_ff
+                                            or cfg.d_ff),
+                    cfg.first_dense_layers, dtype, device)
+        elif cfg.family == "ssm":
+            self.layers = tf.stack(tf.SSMBlock, cfg, cfg.n_layers, dtype,
+                                   device)
+        elif cfg.family == "hybrid":
+            self.layers = tf.Hybrid(cfg, dtype, device)
+        elif cfg.family == "encdec":
+            self.enc_layers = tf.stack(tf.DenseBlock, cfg, cfg.n_enc_layers,
+                                       dtype, device)
+            self.leaf("enc_norm", (cfg.d_model,))
+            self.leaf("enc_proj", (cfg.frontend_dim, cfg.d_model), 1.0)
+            self.layers = tf.stack(tf.DecBlock, cfg, cfg.n_layers, dtype,
+                                   device)
+        else:
+            raise ValueError(cfg.family)
+        if cfg.family == "vlm":
+            self.leaf("projector", (cfg.frontend_dim, cfg.d_model), 1.0)
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+
+def _with_ff(cfg, ff):
+    return dataclasses.replace(cfg, d_ff=ff)
+
+
+def init(cfg: ArchConfig, generator: torch.Generator | None = None,
+         device="cuda") -> Model:
+    """A ``Model`` drawn from ``generator`` (seed 0 on ``device`` when
+    none is given): the reference's leaf distributions, not its draws."""
+    model = Model(cfg, device)
+    if generator is None:
+        generator = torch.Generator(device=model.device).manual_seed(0)
+    init_leaves(model, generator)
+    return model
+
+
+# --------------------------------------------------------------------------
+# caches (decode state)
+# --------------------------------------------------------------------------
+
+def cache_decl(cfg: ArchConfig, batch: int, max_len: int) -> dict:
+    """The decode cache's leaves as {name: (shape, dtype or None)}: the
+    reference's ``cache_decl`` tree without its partition specs (None:
+    the config's dtype; SSM states are f32)."""
+    kvshape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.family in ("dense", "vlm"):
+        return {"k": (kvshape, None), "v": (kvshape, None)}
+    if cfg.family == "moe":
+        n_moe = cfg.n_layers - cfg.first_dense_layers
+        mk = (n_moe,) + kvshape[1:]
+        dk = (cfg.first_dense_layers,) + kvshape[1:]
+        out = {"k": (mk, None), "v": (mk, None)}
+        if cfg.first_dense_layers:
+            out = {"moe": out, "dense": {"k": (dk, None), "v": (dk, None)}}
+        return out
+    if cfg.family == "ssm":
+        di = cfg.d_inner
+        return {"ssm": ((cfg.n_layers, batch, di, cfg.ssm_state),
+                        torch.float32),
+                "conv": ((cfg.n_layers, batch, cfg.conv_width - 1, di),
+                         None)}
+    if cfg.family == "hybrid":
+        g = cfg.n_layers // cfg.hybrid_attn_every
+        di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        gk = (g, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"ssm": ((cfg.n_layers, batch, nh, di // nh, n),
+                        torch.float32),
+                "conv": ((cfg.n_layers, batch, cfg.conv_width - 1,
+                          di + 2 * n), None),
+                "attn_k": (gk, None), "attn_v": (gk, None)}
+    if cfg.family == "encdec":
+        xk = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": (kvshape, None), "v": (kvshape, None),
+                "xk": (xk, None), "xv": (xk, None)}
+    raise ValueError(cfg.family)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int,
+               device="cuda") -> dict:
+    """Zeros in the reference's cache layout, on ``device``."""
+    device = resolve_device(device)
+
+    def make(d):
+        if isinstance(d, dict):
+            return {k: make(v) for k, v in d.items()}
+        shape, dtype = d
+        return torch.zeros(shape, dtype=dtype or DTYPES[cfg.dtype],
+                           device=device)
+    return make(cache_decl(cfg, batch, max_len))
+
+
+# --------------------------------------------------------------------------
+# forward passes
+# --------------------------------------------------------------------------
+
+def _embed_inputs(cfg, params, batch):
+    """tokens (+ stub frontend embeddings) -> (B, S, D) activations."""
+    x = scale_embedding(embed_lookup(params.embed, batch["tokens"]),
+                        cfg.d_model)
+    if cfg.family == "vlm":
+        patches = batch["patches"].to(x.dtype) @ params.projector
+        x = torch.cat([patches, x], dim=1)
+    return x
+
+
+def _encode(cfg, params, batch, dtype):
+    enc_x = batch["frames"].to(dtype) @ params.enc_proj
+    enc_pos = torch.arange(enc_x.shape[1], device=enc_x.device)
+    enc_out = tf.encoder_stack(cfg, params.enc_layers, enc_x, enc_pos)
+    return rms_norm(enc_out, params.enc_norm, cfg.norm_eps), enc_pos
+
+
+def _attn_families(cfg, params, x, positions, windows, cache, cache_pos):
+    """dense / vlm / moe: the (leading dense and) main attention stacks."""
+    if cfg.family == "moe" and cfg.first_dense_layers:
+        nd = cfg.first_dense_layers
+        dcfg = _with_ff(cfg, cfg.first_dense_d_ff or cfg.d_ff)
+        x, _, _ = tf.attn_stack(dcfg, params.dense_layers, x, positions,
+                                windows[:nd], kind="dense",
+                                cache=None if cache is None
+                                else cache["dense"], cache_pos=cache_pos)
+        x, _, aux = tf.attn_stack(cfg, params.layers, x, positions,
+                                  windows[nd:], kind="moe",
+                                  cache=None if cache is None
+                                  else cache["moe"], cache_pos=cache_pos)
+        return x, cache, aux
+    kind = "moe" if cfg.family == "moe" else "dense"
+    return tf.attn_stack(cfg, params.layers, x, positions, windows,
+                         kind=kind, cache=cache, cache_pos=cache_pos)
+
+
+def forward(cfg: ArchConfig, params, batch):
+    """Full-sequence forward -> (logits (B, S, V_padded), aux)."""
+    x, aux = forward_hidden(cfg, params, batch)
+    logits = unembed(params.embed, x, cap=cfg.logit_softcap,
+                     vocab=cfg.vocab_size)
+    return logits, aux
+
+
+def forward_hidden(cfg: ArchConfig, params, batch):
+    """Full-sequence forward -> (final-norm hidden states (B, S, D), aux).
+
+    batch: {"tokens": (B, S)} + family extras
+    ("patches": (B, P, frontend_dim) for vlm;
+     "frames": (B, S_enc, frontend_dim) for encdec).
+    """
+    x = _embed_inputs(cfg, params, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("dense", "vlm", "moe"):
+        x, _, aux = _attn_families(cfg, params, x, positions,
+                                   cfg.layer_windows(s), None, None)
+    elif cfg.family == "ssm":
+        x, _ = tf.ssm_stack(cfg, params.layers, x)
+    elif cfg.family == "hybrid":
+        x = tf.hybrid_stack(cfg, params.layers, x, positions)
+    elif cfg.family == "encdec":
+        enc_out, enc_pos = _encode(cfg, params, batch, x.dtype)
+        x, _ = tf.decoder_xattn_stack(cfg, params.layers, x, positions,
+                                      enc_out, enc_pos)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    return x, aux
+
+
+def _chunked_ce(cfg, params, h, tgt):
+    """Mean next-token cross entropy, the batch in chunks (as the
+    reference chunks it, so no (T, V) f32 logits for the whole batch)."""
+    b, s, d = h.shape
+    nb = 1
+    for cand in (16, 8, 4, 2):
+        if b % cand == 0 and b // cand >= cand:
+            nb = cand
+            break
+    # the reference's chunks stride across the batch: chunk j holds rows
+    # j, j + nb, j + 2 nb, ...
+    hb = h.reshape(b // nb, nb, s, d).transpose(0, 1)
+    tb = tgt.reshape(b // nb, nb, s).transpose(0, 1)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for hc, tc in zip(hb, tb):
+        lg = unembed(params.embed, hc, cap=cfg.logit_softcap,
+                     vocab=cfg.vocab_size).float()
+        lse = torch.logsumexp(lg, dim=-1)
+        true = torch.gather(lg, -1, tc[..., None].long())[..., 0]
+        total = total + torch.sum(lse - true)
+    return total / (b * s)
+
+
+def loss_fn(cfg: ArchConfig, params, batch, *, aux_weight=0.01):
+    """Next-token cross entropy (f32 logsumexp, chunked) + MoE aux loss.
+    Forward only here: the backward pass comes with the training slice."""
+    hidden, aux = forward_hidden(cfg, params, batch)
+    tokens = batch["tokens"]
+    if cfg.family == "vlm":   # text tail only
+        hidden = hidden[:, -tokens.shape[1]:]
+    loss = _chunked_ce(cfg, params, hidden[:, :-1], tokens[:, 1:])
+    return loss + aux_weight * aux
+
+
+def prefill(cfg: ArchConfig, params, batch, cache):
+    """Populate the decode cache from a full prompt (written at offset 0,
+    in place); returns (last-token logits (B, 1, V), cache)."""
+    x = _embed_inputs(cfg, params, batch)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    if cfg.family in ("dense", "vlm", "moe"):
+        x, cache, _ = _attn_families(cfg, params, x, positions,
+                                     cfg.layer_windows(s), cache, 0)
+    elif cfg.family == "ssm":
+        x, cache = tf.ssm_stack(cfg, params.layers, x, states=cache)
+    elif cfg.family == "hybrid":
+        x = _hybrid(cfg, params, x, positions, cache, 0)
+    elif cfg.family == "encdec":
+        enc_out, enc_pos = _encode(cfg, params, batch, x.dtype)
+        x, cache = tf.decoder_xattn_stack(cfg, params.layers, x, positions,
+                                          enc_out, enc_pos, cache=cache,
+                                          cache_pos=0)
+    x = rms_norm(x[:, -1:], params.final_norm, cfg.norm_eps)
+    logits = unembed(params.embed, x, cap=cfg.logit_softcap,
+                     vocab=cfg.vocab_size)
+    return logits, cache
+
+
+def _hybrid(cfg, params, x, positions, cache, pos):
+    return tf.hybrid_stack(
+        cfg, params.layers, x, positions,
+        states={"ssm": cache["ssm"], "conv": cache["conv"]},
+        cache={"k": cache["attn_k"], "v": cache["attn_v"]}, cache_pos=pos)
+
+
+def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
+    """One-token decode.  tokens: (B, 1); pos: the write offset, one for
+    every row.  Returns (logits (B, 1, V), cache)."""
+    x = scale_embedding(embed_lookup(params.embed, tokens), cfg.d_model)
+    positions = int(pos) + torch.arange(1, device=x.device)
+    if cfg.family in ("dense", "vlm", "moe"):
+        kv = cache["dense"]["k"] if "dense" in cache else cache["k"]
+        x, cache, _ = _attn_families(cfg, params, x, positions,
+                                     cfg.layer_windows(kv.shape[2]), cache,
+                                     pos)
+    elif cfg.family == "ssm":
+        x, cache = tf.ssm_stack(cfg, params.layers, x, states=cache)
+    elif cfg.family == "hybrid":
+        x = _hybrid(cfg, params, x, positions, cache, pos)
+    elif cfg.family == "encdec":
+        enc_pos = torch.arange(cache["xk"].shape[2], device=x.device)
+        x, cache = tf.decoder_xattn_stack(cfg, params.layers, x, positions,
+                                          None, enc_pos, cache=cache,
+                                          cache_pos=pos)
+    else:
+        raise ValueError(cfg.family)
+    x = rms_norm(x, params.final_norm, cfg.norm_eps)
+    logits = unembed(params.embed, x, cap=cfg.logit_softcap,
+                     vocab=cfg.vocab_size)
+    return logits, cache
+

@@ -1,21 +1,30 @@
-"""Micro-batching front door for vector search.
+"""Batched serving engines: LM continuous batching + vector-search routing.
 
-Port of ``repro/serving/engine.py``'s ``VectorSearchFrontend``: single
-queries coalesce into fixed-shape batches and dispatch to any of the
-port's search backends (every tier, and a database born empty), with the
-adapt layer's maintainer observing every dispatched chunk and an
-attached ingest queue pumped once a flush.  The reference's
-``ServingEngine`` (LM decode) comes with ROADMAP queue 1, item 'LLM/RAG
-stack last'.
+Port of ``repro/serving/engine.py``.  Two front doors live here:
+
+* ``ServingEngine`` — slot-based continuous batching for LM decode: a
+  fixed pool of B decode slots; finished sequences free their slot and
+  the next queued request is prefilled into it.  The scheduler is
+  host-side, with the reference's admission, offset grouping, EOS and
+  ``max_len`` rules — and its slot clobbering (see the class).
+* ``VectorSearchFrontend`` — micro-batching router for retrieval: single
+  queries coalesce into fixed-shape batches and dispatch to any of the
+  port's search backends (every tier, and a database born empty), with
+  the adapt layer's maintainer observing every dispatched chunk and an
+  attached ingest queue pumped once a flush.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.engine import SearchStats
+from repro_torch.models import model as M
 from repro_torch.obs import NULL_INSTRUMENT, RollingWindow
 
 
@@ -188,3 +197,85 @@ class VectorSearchFrontend:
         if self.ingest is not None:
             self.ingest.pump()
         return (np.concatenate(all_ids), np.concatenate(all_d), all_stats)
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray            # (S,) int
+    max_new_tokens: int = 16
+    out: Optional[np.ndarray] = None
+
+
+class ServingEngine:
+    """Continuous batching over ``slots`` decode slots of one cache.
+
+    Prompts are fed token by token through ``decode_step`` into their
+    slot, and each decode call serves every active slot at one write
+    offset.  As in the reference, a call writes K/V (and advances SSM
+    state) for ALL rows at that offset, so slots at other offsets have
+    their caches overwritten: requests served together can decode other
+    tokens than each served alone.  Kept for parity
+    (``tests/test_torch_lm_serving.py`` shows both packages doing it).
+    """
+
+    def __init__(self, cfg: ArchConfig, params, *, slots: int = 4,
+                 max_len: int = 128, eos_id: int = 1):
+        self.cfg, self.params = cfg, params
+        self.slots, self.max_len, self.eos = slots, max_len, eos_id
+        self.device = params.device
+        self.cache = M.init_cache(cfg, slots, max_len, self.device)
+        self.pos = np.zeros(slots, np.int64)       # next write offset
+        self.budget = np.zeros(slots, np.int64)    # remaining new tokens
+        self.active: list[Optional[Request]] = [None] * slots
+        self.last_tok = np.zeros(slots, np.int64)
+
+    def _decode(self, tokens: np.ndarray, pos: int) -> np.ndarray:
+        """One decode call for every slot; returns each row's argmax."""
+        toks = torch.as_tensor(tokens, dtype=torch.int32).to(self.device)
+        with torch.no_grad():
+            logits, self.cache = M.decode_step(self.cfg, self.params, toks,
+                                               self.cache, pos)
+        return logits[:, -1].argmax(-1).cpu().numpy()
+
+    def _prefill_into_slot(self, slot: int, req: Request) -> None:
+        """Feed the prompt token by token through decode (slot-local
+        prefill, as the reference does it)."""
+        for t in req.prompt.astype(np.int64):
+            tok = np.zeros((self.slots, 1), np.int32)
+            tok[slot, 0] = int(t)
+            nxt = self._decode(tok, int(self.pos[slot]))
+            self.pos[slot] += 1
+        self.last_tok[slot] = int(nxt[slot])
+        self.budget[slot] = req.max_new_tokens
+        req.out = np.asarray([int(nxt[slot])], np.int64)
+        self.active[slot] = req
+
+    def run(self, requests: list[Request]) -> list[Request]:
+        """Serve all requests to completion; returns them with .out filled,
+        in order of completion."""
+        pending = list(requests)
+        done: list[Request] = []
+        while pending or any(a is not None for a in self.active):
+            for s in range(self.slots):              # admit
+                if self.active[s] is None and pending:
+                    self.pos[s] = 0
+                    self._prefill_into_slot(s, pending.pop(0))
+            toks = self.last_tok.astype(np.int32)[:, None]
+            groups: dict[int, list[int]] = {}
+            for s in range(self.slots):
+                if self.active[s] is not None:
+                    groups.setdefault(int(self.pos[s]), []).append(s)
+            for off, ss in groups.items():           # one call per offset
+                nxt_all = self._decode(toks, off)
+                for s in ss:
+                    nxt = int(nxt_all[s])
+                    req = self.active[s]
+                    req.out = np.append(req.out, nxt)
+                    self.pos[s] += 1
+                    self.budget[s] -= 1
+                    self.last_tok[s] = nxt
+                    if (nxt == self.eos or self.budget[s] <= 0
+                            or self.pos[s] >= self.max_len - 1):
+                        done.append(req)
+                        self.active[s] = None
+        return done
