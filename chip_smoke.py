@@ -115,7 +115,24 @@ then:
    moe-16b, falcon-mamba-7b, zamba2-7b, seamless-m4t-large-v2,
    internvl2-26b, gemma2-27b; printed as ``reduced:``): a prefill of 2 x
    16 tokens and 4 teacher-forced decode steps in bf16 and in f32 on the
-   card against CPU twins with the same weights.
+   card against CPU twins with the same weights, then one ``loss_fn``
+   and every gradient in f32 against the CPU twin's;
+9. training, alone on the card right after phase 8: gemma-2b at its
+   published config through ``python -m repro_torch.launch.train --arch
+   gemma-2b --steps 20`` (the reference driver's defaults: batch 4 x 64,
+   ``AdamWConfig(total_steps=20)``; no checkpoint at this width, printed
+   as ``reduced:``): finite losses and grad norms, the median step ms
+   over steps 3-20, the device busy ms and idle share of one more step,
+   tokens/s, ``train_mfu`` against the analytic roofline, the step's byte
+   bound, peak device memory; then remat against no remat at published
+   widths cut to 2 layers on 2 x 1,024 tokens (flash attention's 2 x 2
+   blocks of 512): the gradients agree and remat lowers peak memory;
+   then the reference's drills on the card (the loss falls on reduced
+   gemma-2b; reduced falcon-mamba-7b resumes from its checkpoint within
+   rtol 1e-5 of a straight run, under deterministic algorithms); and in
+   the fourth process, gemma-2b at published widths cut to 2 layers in
+   f32 trains 3 steps on the card and on the CPU from one draw (losses,
+   grad norms and parameters agree).
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
@@ -130,8 +147,8 @@ its shadow and gated-off batches run the diskann path; a disk search
 launches no ``gather_distance``, its rerank being on the host; a
 sharded or tiered search launches, shard by shard and tier by tier,
 what ``PathSpy`` records; the mesh search each virtual device's
-catapult RAM step; the LM path launches nothing, the RAG retrieval its
-Vamana build's and one catapult batch's).
+catapult RAM step; the LM path and the training path launch nothing,
+the RAG retrieval its Vamana build's and one catapult batch's).
 Any failed check exits non-zero.  Prints the
 card's name and power limit first, a ``{"kernels": [...]}`` line, and as
 the last line ``{"ok": true, "device": {...}}``.  Imports nothing of JAX
@@ -252,6 +269,42 @@ LM_TOL32 = 2e-3
 # (the CPU parity tests' rule, tests/test_torch_models.py)
 LM_BF16_FACTOR, LM_BF16_FLOOR = 2.0, 0.01
 LM_THREADS = 4                 # CPU twins' threads beside the other phases
+# every LM twin's loss_fn and gradients, f32 card vs f32 CPU: the loss to
+# LM_LOSS_RTOL, each gradient leaf within LM_GRAD_TOL of its largest |g|
+# (gemma-2b, deepseek-moe, zamba2, internvl2 and gemma2-27b parted by
+# 3e-5 to 7.9e-3 on an H100) or, where f32 cannot resolve a leaf
+# (falcon-mamba's first layer and seamless-m4t's encoder projection part
+# from a float64 run by up to 0.34 and 0.056 on the CPU), within twice
+# the CPU's own f32 error against float64 (lm_grads)
+LM_LOSS_RTOL, LM_GRAD_TOL = 1e-4, 1e-2
+LM_GRAD_ROWS = 1               # of the LM_B rows (the CPU twins' backward
+                               # runs beside phases 2-5)
+# training: gemma-2b at its published config through launch/train at the
+# reference driver's defaults (batch 4 x 64, AdamWConfig(total_steps=20))
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 20, 4, 64
+TRAIN_TIMED_FROM = 3           # the median step over steps 3-20
+PEAK_BF16_FLOPS = 989e12       # H100 SXM dense bf16 (train_mfu's yardstick)
+# remat on the card: 2 layers at published widths, 2 x 1,024 tokens (flash
+# attention runs 2 x 2 blocks of 512); bf16 gradients with and without
+# remat within REMAT_TOL of each leaf's largest |g| (one bf16 step is 2^-8)
+REMAT_LAYERS, REMAT_B, REMAT_S, REMAT_TOL = 2, 2, 1024, 1e-2
+# the reference's drills (tests/test_train_loop.py's settings)
+DRILL_FALL = dict(steps=60, global_batch=8, seq_len=32)
+DRILL_RESTART = dict(global_batch=4, seq_len=32)
+# the fourth process's training twin: gemma-2b at published widths, 2
+# layers, f32, 3 steps of 2 x 64 on the card and the CPU from one draw
+TWIN_TRAIN = dict(n_layers=2, dtype="float32")
+TWIN_TRAIN_STEPS, TWIN_TRAIN_B, TWIN_TRAIN_S = 3, 2, 64
+# losses rtol; the first step's grad norm (one set of parameters) rtol;
+# the later steps' (after an update, the parameters part by f32 error: an
+# AdamW step moves an element whose gradient is near zero by up to lr in
+# a direction that error picks, and the reference's init (fan-in = depth)
+# amplifies it: the third step's norm parted by 2.5% on an H100);
+# parameters: no element beyond TWIN_PARAM_TOL of the summed learning
+# rates (two opposite updates part by about twice it; 1.62 measured), at
+# most TWIN_PARAM_SHARE of them beyond 1e-3 of it (0.37% measured)
+TWIN_LOSS_RTOL, TWIN_GNORM_RTOL, TWIN_GNORM_LATER_RTOL = 1e-4, 1e-4, 0.1
+TWIN_PARAM_TOL, TWIN_PARAM_SHARE = 2.5, 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -4110,17 +4163,17 @@ def lm_lines(text: str) -> list:
     return [ln for ln in text.splitlines() if ln.startswith("[serve] req ")]
 
 
-def run_serve(argv) -> str:
-    """``python -m repro_torch.launch.serve`` in this process, its
-    standard output captured and echoed."""
+def run_main(main, argv):
+    """A launcher's ``main(argv)`` in this process (``python -m
+    repro_torch.launch.serve`` / ``.train``), its standard output
+    captured and echoed; returns (what ``main`` returns, the output)."""
     import contextlib
     import io
-    from repro_torch.launch import serve
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        serve.main(argv)
+        result = main(argv)
     print(buf.getvalue(), end="", flush=True)
-    return buf.getvalue()
+    return result, buf.getvalue()
 
 
 def phase_serve(seed: int, dev) -> dict:
@@ -4133,6 +4186,7 @@ def phase_serve(seed: int, dev) -> dict:
     step wall ms and device busy ms at the engine's batch, prefill ms,
     tokens/s through ``ServingEngine.run``, peak device memory."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.models import model as M
     from repro_torch.models.layers import padded_vocab
     from repro_torch.serving import rag
@@ -4141,7 +4195,8 @@ def phase_serve(seed: int, dev) -> dict:
     cfg = get_config(LM_ARCH)
     out = {"launches": {}}
     t0 = time.perf_counter()
-    text, made = counted(lambda: run_serve(["--arch", LM_ARCH]))
+    (_, text), made = counted(lambda: run_main(serve.main,
+                                               ["--arch", LM_ARCH]))
     out["serve_s"] = time.perf_counter() - t0
     reqs = lm_lines(text)
     check(len(reqs) == 6, f"serve printed {len(reqs)} requests, not 6")
@@ -4166,8 +4221,8 @@ def phase_serve(seed: int, dev) -> dict:
     try:
         t0 = time.perf_counter()
         with build_spy() as spy:
-            text, made = counted(lambda: run_serve(["--arch", LM_ARCH,
-                                                    "--rag"]))
+            (_, text), made = counted(lambda: run_main(
+                serve.main, ["--arch", LM_ARCH, "--rag"]))
         out["rag_s"] = time.perf_counter() - t0
     finally:
         rag.RagPipeline.retrieve = real
@@ -4268,6 +4323,309 @@ def phase_serve(seed: int, dev) -> dict:
     return out
 
 
+class StepTimer:
+    """Wraps ``launch.train``'s ``make_train_step`` while in the ``with``:
+    each step's wall ms (host clock between two device syncs), loss and
+    grad norm (read after the step's own sync)."""
+
+    def __enter__(self):
+        from repro_torch.launch import train
+        self.mod, self.real = train, train.make_train_step
+        self.ms, self.loss, self.gnorm = [], [], []
+
+        def make(*a, **kw):
+            step = self.real(*a, **kw)
+
+            def timed(model, opt_state, batch):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(model, opt_state, batch)
+                torch.cuda.synchronize()
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+                self.loss.append(float(out[2]["loss"]))
+                self.gnorm.append(float(out[2]["grad_norm"]))
+                return out
+            return timed
+
+        train.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step = self.real
+        return False
+
+
+def train_lines(text: str) -> list:
+    """The ``[train] step=...`` lines' step numbers, each line checked
+    against the reference driver's format."""
+    import re
+    pat = re.compile(r"^\[train\] step=(\d+) loss=-?\d+\.\d{4} "
+                     r"gnorm=\d+\.\d{3} t=\d+\.\d{3}s$")
+    steps = []
+    for ln in text.splitlines():
+        if ln.startswith("[train] step="):
+            m = pat.match(ln)
+            check(m is not None, f"train printed {ln!r}")
+            steps.append(int(m.group(1)))
+    return steps
+
+
+def phase_train(seed: int, dev) -> dict:
+    """The training path at gemma-2b's published config, alone on the
+    card: ``python -m repro_torch.launch.train --arch gemma-2b --steps
+    20`` (the reference driver's defaults) with launch counts set to 0
+    just before it and read just after (training launches no
+    hand-written kernel), each step timed; then one more step under the
+    profiler (device busy ms, idle share), tokens/s, ``train_mfu``
+    against the roofline, peak device memory; then remat against no
+    remat at published widths (``train_remat``) and the reference's two
+    drills (``train_drills``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import roofline, train
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw
+
+    cfg = get_config(LM_ARCH)
+    out = {"launches": {}}
+    print(f"reduced: no checkpoint at {LM_ARCH}'s full width (its state "
+          f"is 25 GB; the reference driver's default is ckpt_dir=None); "
+          f"the restart drill checkpoints reduced falcon-mamba-7b",
+          flush=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepTimer() as timer:
+        ((model, opt_state, losses), text), made = counted(
+            lambda: run_main(train.main, ["--arch", LM_ARCH, "--steps",
+                                          str(TRAIN_STEPS)]))
+    out["train_s"] = time.perf_counter() - t0
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    check(not any(made.values()), f"the training path launched {made}")
+    out["launches"]["train"] = made
+    check(train_lines(text) == [0, 10, TRAIN_STEPS - 1],
+          f"train printed steps {train_lines(text)}")
+    check(len(losses) == TRAIN_STEPS and losses == timer.loss
+          and len(timer.gnorm) == TRAIN_STEPS,
+          f"train ran {len(losses)} steps, timed {len(timer.ms)}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(timer.gnorm)),
+          f"non-finite training: losses {losses}, gnorms {timer.gnorm}")
+    timed = timer.ms[TRAIN_TIMED_FROM - 1:]
+    step_ms = float(np.median(timed))
+
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_S, TRAIN_B)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+    step = make_train_step(cfg, adamw.AdamWConfig(total_steps=TRAIN_STEPS))
+    busy, events = device_activity(lambda: step(model, opt_state, batch))
+    split = step_split(cfg, model, opt_state, batch)
+    flops = roofline.model_flops(cfg, "train", TRAIN_S, TRAIN_B)
+    hbm = roofline.analytic_hbm_bytes(cfg, "train", TRAIN_S, TRAIN_B)
+    out.update(
+        params=roofline.count_params(cfg), losses=losses,
+        grad_norms=timer.gnorm, step_ms_all=timer.ms, step_ms=step_ms,
+        step_ms_min=float(np.min(timed)), busy_ms=busy,
+        device_events=events,
+        idle_share=1.0 - busy / step_ms if busy else None,
+        tokens_s=TRAIN_B * TRAIN_S / (step_ms / 1e3),
+        train_mfu=flops / (step_ms / 1e3 * PEAK_BF16_FLOPS),
+        model_flops=flops, hbm_bytes=hbm,
+        bound_bytes_ms=hbm / PEAK_BYTES_PER_S * 1e3,
+        bound_flops_ms=flops / PEAK_BF16_FLOPS * 1e3, split=split)
+    del model, opt_state, step, batch
+    torch.cuda.empty_cache()
+    print(f"train {LM_ARCH} (published config, {out['params'] / 1e9:.3f} B "
+          f"params, batch {TRAIN_B} x {TRAIN_S}, {TRAIN_STEPS} steps in "
+          f"{out['train_s']:.1f} s): step {step_ms:.2f} ms median over "
+          f"steps {TRAIN_TIMED_FROM}-{TRAIN_STEPS} (min "
+          f"{out['step_ms_min']:.2f}), device busy {busy:.3f} ms in "
+          f"{events} kernels/copies, idle share {out['idle_share']:.3f}; "
+          f"{out['tokens_s']:.1f} tokens/s; train_mfu "
+          f"{out['train_mfu']:.4f} ({flops / 1e12:.3f} TFLOP a step, "
+          f"{out['bound_flops_ms']:.2f} ms at 989 TFLOP/s); byte bound "
+          f"{out['bound_bytes_ms']:.2f} ms ({hbm / 1e9:.2f} GB at 3.35 "
+          f"TB/s); peak device memory {out['peak_gb']:.2f} GB; losses "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, grad norms "
+          f"{min(timer.gnorm):.3f}-{max(timer.gnorm):.3f}; split: loss + "
+          f"backward {split['grad_ms']:.2f} ms wall, {split['grad_busy_ms']:.3f}"
+          f" busy in {split['grad_events']} events; adamw.update "
+          f"{split['update_ms']:.2f} ms wall, {split['update_busy_ms']:.3f} "
+          f"busy in {split['update_events']} events", flush=True)
+    out["remat"] = train_remat(seed, dev)
+    out["drills"] = train_drills(dev)
+    out["launches"].update(out["drills"].pop("launches"))
+    return out
+
+
+def step_split(cfg, model, opt_state, batch) -> dict:
+    """A training step's two halves apart: ``loss_fn`` with every
+    gradient (remat on), then ``adamw.update`` with those gradients; the
+    wall ms of each (host clock between device syncs, the second call)
+    and its device busy ms and events (a third, profiled call)."""
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw
+    params = dict(model.named_parameters())
+    opt = adamw.AdamWConfig(total_steps=TRAIN_STEPS)
+
+    def grads():
+        loss = M.loss_fn(cfg, model, batch)
+        return dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    g, grad_ms = timed(grads)
+    grad_busy, grad_events = device_activity(grads)
+    state = [opt_state]
+
+    def update():
+        state[0] = adamw.update(opt, g, state[0], params)[1]
+
+    _, update_ms = timed(update)
+    update_busy, update_events = device_activity(update)
+    return dict(grad_ms=grad_ms, grad_busy_ms=grad_busy,
+                grad_events=grad_events, update_ms=update_ms,
+                update_busy_ms=update_busy, update_events=update_events)
+
+
+def train_remat(seed: int, dev) -> dict:
+    """One loss and every gradient of gemma-2b at published widths (2
+    layers, bf16) on REMAT_B x REMAT_S tokens, with remat and without:
+    the gradients within REMAT_TOL of each other, the peak device memory
+    (above what was allocated before the pass) lower with remat."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, n_layers=REMAT_LAYERS)
+    print(f"reduced: remat check {LM_ARCH} n_layers {full.n_layers} -> "
+          f"{REMAT_LAYERS} (published widths, bf16), batch {REMAT_B} x "
+          f"{REMAT_S}", flush=True)
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (REMAT_B, REMAT_S)), device=dev)}
+    params = list(model.parameters())
+    res = {}
+    for remat in (True, False):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = M.loss_fn(cfg, model, batch, remat=remat)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        res[remat] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                          loss=float(loss.detach()), grads=grads,
+                          peak_gb=(torch.cuda.max_memory_allocated()
+                                   - base) / 1e9)
+    shares = [float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max().clamp(min=1e-30))
+              for a, b in zip(res[True]["grads"], res[False]["grads"])]
+    finite = all(bool(torch.isfinite(g).all()) for g in res[True]["grads"])
+    out = {"loss": res[True]["loss"], "loss_plain": res[False]["loss"],
+           "grad_share_max": max(shares),
+           "leaves_bit_equal": sum(torch.equal(a, b) for a, b in
+                                   zip(res[True]["grads"],
+                                       res[False]["grads"])),
+           "leaves": len(shares),
+           "peak_gb": res[True]["peak_gb"],
+           "peak_gb_plain": res[False]["peak_gb"],
+           "ms": res[True]["ms"], "ms_plain": res[False]["ms"]}
+    del model, params, res, grads, loss
+    torch.cuda.empty_cache()
+    print(f"remat ({LM_ARCH}, {REMAT_LAYERS} layers, {REMAT_B} x "
+          f"{REMAT_S}): peak {out['peak_gb']:.2f} GB with remat, "
+          f"{out['peak_gb_plain']:.2f} GB without; gradients within "
+          f"{out['grad_share_max']:.3g} of each leaf's largest (<= "
+          f"{REMAT_TOL}), {out['leaves_bit_equal']} of {out['leaves']} "
+          f"leaves bit-equal; loss {out['loss']:.6f} / "
+          f"{out['loss_plain']:.6f}; loss + backward {out['ms']:.1f} / "
+          f"{out['ms_plain']:.1f} ms", flush=True)
+    check(finite and np.isfinite(out["loss"]), "remat: non-finite gradients")
+    check(out["grad_share_max"] <= REMAT_TOL,
+          f"remat changed the gradients by {out['grad_share_max']:.3g}")
+    check(out["peak_gb"] < out["peak_gb_plain"],
+          f"remat did not lower peak memory: {out['peak_gb']:.2f} against "
+          f"{out['peak_gb_plain']:.2f} GB")
+    return out
+
+
+def train_drills(dev) -> dict:
+    """The reference's two training drills on the card, at its test
+    settings: the loss falls on reduced gemma-2b (60 steps of 8 x 32,
+    lr 3e-3, warmup 5); reduced falcon-mamba-7b trains 8 steps with a
+    checkpoint every 4, resumes to 12, and matches 12 straight steps
+    within rtol 1e-5, under ``torch.use_deterministic_algorithms``
+    (warn_only: what it warns of is printed).  ``CUBLAS_WORKSPACE_CONFIG``
+    is left unset, so cuBLAS is warned of: set for the whole process it
+    made gemma-2b's decode step half again as slow on an H100
+    (``kernel_times.py --decode``); on one stream cuBLAS repeats its
+    results, which the drill's equality checks."""
+    import warnings
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+
+    def quiet(*a):
+        pass
+
+    out = {"launches": {}}
+    print("reduced: the drills run get_reduced(gemma-2b) and "
+          "get_reduced(falcon-mamba-7b), as the reference's own tests "
+          "(tests/test_train_loop.py)", flush=True)
+    t0 = time.perf_counter()
+    (_, _, losses), made = counted(lambda: train.train(
+        get_reduced(LM_ARCH), opt_cfg=adamw.AdamWConfig(
+            lr=3e-3, warmup=5, total_steps=DRILL_FALL["steps"]),
+        device=dev, log=quiet, **DRILL_FALL))
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    out.update(fall_first=first, fall_last=last,
+               fall_s=time.perf_counter() - t0)
+    out["launches"]["train_drill_fall"] = made
+    check(not any(made.values()), f"the loss drill launched {made}")
+    check(last < first - 0.1, f"the loss did not fall: {first} -> {last}")
+
+    cfg = get_reduced("falcon-mamba-7b")
+    kw = dict(opt_cfg=adamw.AdamWConfig(total_steps=12, warmup=2),
+              device=dev, log=quiet, **DRILL_RESTART)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, \
+            warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            def drill():
+                train.train(cfg, steps=8, ckpt_dir=tmp, ckpt_every=4, **kw)
+                resumed = train.train(cfg, steps=12, ckpt_dir=tmp,
+                                      resume=True, **kw)[2]
+                return resumed, train.train(cfg, steps=12, **kw)[2]
+            (resumed, full), made = counted(drill)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[8:]))
+    out.update(restart_rel=rel, restart_s=time.perf_counter() - t0,
+               resumed=resumed, full=full[8:],
+               deterministic_warnings=sorted({
+                   str(w.message).splitlines()[0][:200] for w in warned}))
+    out["launches"]["train_drill_restart"] = made
+    print(f"drills: loss {first:.4f} -> {last:.4f} (mean of the first and "
+          f"last 10 of 60 steps, {out['fall_s']:.1f} s); restart resumed "
+          f"steps 8-11 within {rel:.3g} of a straight run (rtol 1e-5, "
+          f"{out['restart_s']:.1f} s); deterministic mode warned of "
+          f"{out['deterministic_warnings'] or 'nothing'}", flush=True)
+    check(not any(made.values()), f"the restart drill launched {made}")
+    check(len(resumed) == 4 and rel <= 1e-5,
+          f"the resumed losses {resumed} part from {full[8:]} by {rel:.3g}")
+    return out
+
+
 def copy_model(src, cfg, device):
     """A ``Model`` of ``cfg`` on ``device`` with ``src``'s weights (cast
     to ``cfg.dtype``; bf16 to f32 is exact)."""
@@ -4344,12 +4702,13 @@ def lm_twin(arch: str, cut: dict, seed: int, dev) -> dict:
     res["card16"] = lm_logits(cfg16, card16, batch, toks)
     res["cpu16"] = lm_logits(cfg16, copy_model(card16, cfg16, "cpu"),
                              batch, toks)
-    res["cpu32"] = lm_logits(cfg32, copy_model(card16, cfg32, "cpu"),
-                             batch, toks)
+    cpu32 = copy_model(card16, cfg32, "cpu")
+    res["cpu32"] = lm_logits(cfg32, cpu32, batch, toks)
     card32 = copy_model(card16, cfg32, dev)
     del card16
     res["card32"] = lm_logits(cfg32, card32, batch, toks)
-    del card32
+    grads = lm_grads(cfg32, card32, cpu32, batch)
+    del card32, cpu32
     torch.cuda.empty_cache()
     agree = dict(prefill=[], decode=[])
     out = {"params": res["params"], "err32": [], "err16": [],
@@ -4375,27 +4734,175 @@ def lm_twin(arch: str, cut: dict, seed: int, dev) -> dict:
         agree["prefill" if i == 0 else "decode"].append(
             float((res["card16"][i].argmax(-1) == want.argmax(-1)).mean()))
     out["argmax_agree_bf16"] = agree
+    out["grads"] = grads
     out["seconds"] = time.perf_counter() - t0
     print(f"{arch} twin ({res['params'] / 1e9:.2f} B params): f32 card vs "
           f"CPU max share {max(out['err32']):.3g} (<= {LM_TOL32}); bf16 "
           f"card {max(out['err16']):.3g} against the CPU's own bf16 "
           f"{max(out['err16_cpu']):.3g} (prefill, 4 decode steps); "
+          f"loss_fn {grads['loss_card']:.6f} / {grads['loss_cpu']:.6f}, "
+          f"gradients within {grads['grad_share_max']:.3g} of each "
+          f"leaf's largest ({grads['worst']}; <= {LM_GRAD_TOL}, or "
+          f"against float64 card / CPU "
+          f"{max((e for e in grads.get('over_f64', {}).values()), default='-')}"
+          f" on {len(grads.get('over_f64', {}))} leaves); "
           f"{out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def named_grads(cfg, model, batch) -> tuple:
+    """(loss_fn, {name: gradient}) of ``model`` on ``batch`` (numpy),
+    through autograd with the training path's remat."""
+    from repro_torch.models import model as M
+    params = dict(model.named_parameters())
+    loss = M.loss_fn(cfg, model, {
+        k: torch.as_tensor(v, device=model.device) for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return float(loss.detach()), dict(zip(params, grads))
+
+
+def lm_grads(cfg, card, cpu, batch) -> dict:
+    """One ``loss_fn`` and every gradient (f32) of the card model against
+    its CPU twin, on the batch's first LM_GRAD_ROWS rows: the loss within
+    LM_LOSS_RTOL, each leaf within
+    LM_GRAD_TOL of its largest |g|.  At published widths the reference's
+    init (fan-in = depth) can leave a leaf's f32 gradient mostly rounding
+    error (falcon-mamba's first layer parts from a float64 run by ~0.7 of
+    its largest on the CPU): a leaf beyond LM_GRAD_TOL is held instead to
+    twice the CPU twin's own f32 error against a float64 run of the CPU
+    twin, plus LM_GRAD_TOL (the rule the bf16 logits follow).  ``cpu`` is
+    cast to float64 then."""
+    batch = {k: v[:LM_GRAD_ROWS] for k, v in batch.items()}
+    loss_card, g_card = named_grads(cfg, card, batch)
+    loss_cpu, g_cpu = named_grads(cfg, cpu, batch)
+    g_card = {name: g.cpu() for name, g in g_card.items()}
+    shares = {name: share(g.numpy(), g_cpu[name].numpy())
+              for name, g in g_card.items()}
+    worst = max(shares, key=shares.get)
+    out = {"loss_card": loss_card, "loss_cpu": loss_cpu,
+           "grad_share_max": shares[worst], "worst": worst,
+           "leaves": len(shares)}
+    check(np.isfinite(loss_card) and all(
+        bool(torch.isfinite(g).all()) for g in g_card.values()),
+        f"{cfg.name}: non-finite loss or gradients on the card")
+    check(abs(loss_card - loss_cpu) <= LM_LOSS_RTOL * abs(loss_cpu),
+          f"{cfg.name}: loss_fn {loss_card} on the card, {loss_cpu} on the "
+          f"CPU")
+    over = sorted(name for name, v in shares.items() if v > LM_GRAD_TOL)
+    if over:
+        _, g64 = named_grads(cfg, cpu.double(), {
+            k: v.astype(np.float64) if v.dtype.kind == "f" else v
+            for k, v in batch.items()})
+        f64 = {}
+        for name in over:
+            want = g64[name].numpy()
+            f64[name] = (share(g_card[name].double().numpy(), want),
+                         share(g_cpu[name].double().numpy(), want))
+        out["over_f64"] = f64
+        bad = {n: e for n, e in f64.items()
+               if e[0] > 2 * e[1] + LM_GRAD_TOL}
+        check(not bad, f"{cfg.name}: gradients part from a float64 run "
+                       f"by more than twice the CPU's own f32 error: {bad}")
+    return out
+
+
+def train_twin(seed: int, dev) -> dict:
+    """gemma-2b at published widths, cut to 2 layers, f32: one draw on the
+    card, its copy on the CPU, TWIN_TRAIN_STEPS steps of ``make_train_step``
+    on each from one AdamW state and one pipeline: the losses, grad norms
+    and final parameters agree (TWIN_* tolerances)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(full, **TWIN_TRAIN)
+    print(f"reduced: training twin {LM_ARCH} n_layers {full.n_layers} -> "
+          f"{cfg.n_layers}, dtype {full.dtype} -> {cfg.dtype} (published "
+          f"widths), {TWIN_TRAIN_STEPS} steps of {TWIN_TRAIN_B} x "
+          f"{TWIN_TRAIN_S}", flush=True)
+    t0 = time.perf_counter()
+    opt = adamw.AdamWConfig(lr=1e-3, warmup=1, total_steps=TWIN_TRAIN_STEPS)
+    card = M.init(cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    cpu = copy_model(card, cfg, "cpu")
+    start = {n: p.detach().cpu().numpy().copy()
+             for n, p in card.named_parameters()}
+    pipe = TokenPipeline(cfg.vocab_size, TWIN_TRAIN_S, TWIN_TRAIN_B)
+    step = make_train_step(cfg, opt)
+    runs = {}
+    for side, model in (("card", card), ("cpu", cpu)):
+        state = adamw.init(dict(model.named_parameters()))
+        losses, gnorms = [], []
+        for i in range(TWIN_TRAIN_STEPS):
+            batch = {k: torch.from_numpy(v).to(model.device)
+                     for k, v in pipe.batch_at(i).items()}
+            model, state, m = step(model, state, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        runs[side] = dict(losses=losses, gnorms=gnorms)
+        del state
+    lr_sum = sum(adamw.schedule(opt, s)
+                 for s in range(1, TWIN_TRAIN_STEPS + 1))
+    worst = apart = total = moved = 0.0
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        diff = (p.detach().cpu() - q.detach()).abs()
+        worst = max(worst, float(diff.max()) / lr_sum)
+        apart += int((diff > 1e-3 * lr_sum).sum())
+        total += diff.numel()
+        moved = max(moved, float(np.abs(q.detach().numpy()
+                                        - start[name]).max()) / lr_sum)
+    del card, cpu
+    torch.cuda.empty_cache()
+    out = dict(runs, param_worst=worst, param_apart_share=apart / total,
+               cpu_moved=moved, lr_sum=lr_sum,
+               seconds=time.perf_counter() - t0)
+    print(f"training twin: losses card {runs['card']['losses']} / CPU "
+          f"{runs['cpu']['losses']}; grad norms {runs['card']['gnorms']} / "
+          f"{runs['cpu']['gnorms']} (rtol {TWIN_GNORM_RTOL} at the first "
+          f"step, {TWIN_GNORM_LATER_RTOL} after); parameters apart by at most "
+          f"{worst:.3g} of the summed lr (<= {TWIN_PARAM_TOL}), "
+          f"{out['param_apart_share']:.4%} of them beyond 1e-3 of it (<= "
+          f"{TWIN_PARAM_SHARE:.0%}); the largest move {moved:.3g} of it; "
+          f"{out['seconds']:.1f} s", flush=True)
+    for a, b in zip(runs["card"]["losses"] + runs["card"]["gnorms"],
+                    runs["cpu"]["losses"] + runs["cpu"]["gnorms"]):
+        check(np.isfinite(a), f"training twin: non-finite {a}")
+    check(np.allclose(runs["card"]["losses"], runs["cpu"]["losses"],
+                      rtol=TWIN_LOSS_RTOL, atol=0),
+          "training twin: the losses part")
+    gn_card, gn_cpu = runs["card"]["gnorms"], runs["cpu"]["gnorms"]
+    check(np.allclose(gn_card[:1], gn_cpu[:1], rtol=TWIN_GNORM_RTOL, atol=0)
+          and np.allclose(gn_card[1:], gn_cpu[1:],
+                          rtol=TWIN_GNORM_LATER_RTOL, atol=0),
+          f"training twin: the grad norms part: {gn_card} / {gn_cpu}")
+    check(worst <= TWIN_PARAM_TOL
+          and out["param_apart_share"] <= TWIN_PARAM_SHARE,
+          "training twin: the parameters part")
     return out
 
 
 def phase_lm_twins(seed: int, dev) -> dict:
     """The fourth card process: every LM_TWINS arch against its CPU twin
+    (logits, then ``loss_fn`` and every gradient), then the training twin
     (the LM launches no hand-written kernel: counts must stay 0)."""
     torch.set_num_threads(LM_THREADS)
     print("reduced: arctic-480b left out on the card (one MoE layer alone "
           "holds over 13 B parameters); its dense residual is held by the "
           "CPU parity tests", flush=True)
+    print(f"reduced: each twin's loss_fn and gradients on {LM_GRAD_ROWS} of "
+          f"its {LM_B} rows (the CPU twins' backward runs beside phases "
+          f"2-5)", flush=True)
     t0 = time.perf_counter()
     archs, made = counted(lambda: {
         arch: lm_twin(arch, cut, seed, dev) for arch, cut in LM_TWINS})
     check(not any(made.values()), f"the LM twins launched {made}")
-    out = {"lm_twins": {"archs": archs, "launches": {"lm_twins": made},
+    trained, made_train = counted(lambda: train_twin(seed, dev))
+    check(not any(made_train.values()),
+          f"the training twin launched {made_train}")
+    out = {"lm_twins": {"archs": archs, "train_twin": trained,
+                        "launches": {"lm_twins": made,
+                                     "train_twin": made_train},
                         "seconds": time.perf_counter() - t0}}
     print(f"phase lm twins: {out['lm_twins']['seconds']:.1f} s", flush=True)
     return out
@@ -4570,8 +5077,8 @@ def main() -> int:
 
 def run_phases(args, card, build_dir, build_s, t_run, dev,
                shift_graph, helpers) -> int:
-    """Every phase, in order (the LM serving phase alone after phase 1;
-    then the tier phases and the sharded deployment in a second process,
+    """Every phase, in order (the LM serving and training phases alone
+    after phase 1; then the tier phases and the sharded deployment in a second process,
     the ingest and baseline phases in a third and the LM twins in a
     fourth, all beside phases 2 to 5), then the kernels line and the
     device line."""
@@ -4584,6 +5091,10 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
     serve = phase_serve(args.seed, dev)
     serve["seconds"] = time.perf_counter() - t0
     print(f"phase serve: {serve['seconds']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    trained = phase_train(args.seed, dev)
+    trained["seconds"] = time.perf_counter() - t0
+    print(f"phase train: {trained['seconds']:.1f} s", flush=True)
     for helper in helpers:
         helper.start()
     main_path = phase_main_path(args.seed, dev)
@@ -4608,7 +5119,7 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
                "gather_distance": ("gather_distance.cu",
                                    "gather_distance.py:35"),
                "l2_distance": ("l2_distance.cu", "l2_distance.py:35")}
-    by_path = {**serve["launches"],
+    by_path = {**serve["launches"], **trained["launches"],
                **main_path["launches"], **main_path["pq"]["launches"],
                **main_path["mutations"]["launches"],
                **main_path["disk"]["launches"],
@@ -4643,7 +5154,8 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
             {"card": card, "build_s": build_s, "kernels": kernels,
-             "serve": serve, "main_path": main_path, "filtered": filtered,
+             "serve": serve, "train": trained, "main_path": main_path,
+             "filtered": filtered,
              "adapt_shift": shift, "tiers": tiers,
              "deployment": deploy, "ptxas": ptxas,
              "kernels_line": line}, indent=1, default=str))

@@ -28,6 +28,15 @@ d=768)`` at ``IndexSpec(degree=64)``'s parameters for each N (the
 searches on the card, RobustPrune on the host), then an upsert of 64
 rows into a database over the largest build, on the card and on the
 CPU.  Prints one JSON line ``{"builds_s": {N: s}, "upsert64_s": {...}}``.
+
+    python3 kernel_times.py --decode [--root DIR]
+
+times, instead of phase 1 (and without building the kernels), the LM
+serve phase's decode step: gemma-2b at its published config, a batch of
+2 over a 16-slot cache, 64 steps after 5 warm ones, host clock to a
+device sync.  Prints one JSON line ``{"root": ..., "decode_ms": {"median":
+..., "min": ..., "p90": ...}}``; checkouts in turns compare serving
+across a change to ``models/``.
 """
 from __future__ import annotations
 
@@ -88,6 +97,29 @@ def build_times(sizes, dev) -> dict:
     return out
 
 
+def decode_times(dev, steps: int = 64) -> dict:
+    """Wall ms of the decode steps named in the docstring."""
+    import time
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config("gemma-2b")
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    walls = []
+    with torch.no_grad():
+        cache = M.init_cache(cfg, 2, 16, dev)
+        toks = torch.full((2, 1), 7, dtype=torch.int32, device=dev)
+        for i in range(5 + steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            M.decode_step(cfg, model, toks, cache, 6 + i % 8)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    walls = walls[5:]
+    return {"median": float(np.median(walls)), "min": float(np.min(walls)),
+            "p90": float(np.percentile(walls, 90))}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent))
@@ -95,6 +127,8 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--builds", default=None, metavar="N,N,...",
                     help="time d=768 Vamana builds of these sizes instead")
+    ap.add_argument("--decode", action="store_true",
+                    help="time gemma-2b's decode step instead")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     if not (root / "chip_smoke.py").is_file():
@@ -120,6 +154,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    if args.decode:
+        print(card)
+        print(json.dumps({"root": str(root),
+                          "decode_ms": decode_times(dev)}))
+        return 0
     _build.build_all()
     if args.builds:
         print(card)

@@ -26,7 +26,12 @@ port's state on a given device:
   reference's ``M.init`` tree as numpy arrays, its stacked leaves split
   into the port's per-layer blocks, and its decode cache
   (``model_cache_from_numpy``), so decode parity can start from one
-  cache,
+  cache; and back (``model_params_to_numpy``),
+* an AdamW state (``adamw_state_from_numpy``/``adamw_state_to_numpy``):
+  the reference's ``AdamWState`` trees against the port's moments keyed
+  by parameter name (``stack_tree``/``unstack_tree`` are the mapping,
+  which the training driver's checkpoints use too), so training parity
+  starts both packages from one state,
 * the graph needs no helper: pass ``prebuilt=(adjacency, medoid)`` to
   ``repro_torch.db.create``; a filtered graph crosses as
   ``prebuilt=(adjacency, medoid, label_entries)``, with the per-row
@@ -36,7 +41,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch import nn
 
 from repro_torch.adapt import stats as ts
 from repro_torch.core import buckets as bk
@@ -47,6 +51,7 @@ from repro_torch.core.lsh_apg import LshApgIndex
 from repro_torch.core.pq import PQCodebook
 from repro_torch.device import resolve_device
 from repro_torch.models import model as lm
+from repro_torch.optim import adamw
 
 
 def catapult_state_from_numpy(hyperplanes: np.ndarray, bucket_arrays,
@@ -127,9 +132,11 @@ def set_maintainer_counters(maintainer, counters: dict) -> None:
 
 def _tensor(a, device) -> torch.Tensor:
     """A copy of a numpy array (bfloat16 included, as ``ml_dtypes``
-    holds it) on ``device``, bit for bit.  Always a copy: the caller's
-    buffer (possibly one the reference's runtime owns) is never written
-    by the port's in-place cache updates."""
+    holds it) or of a tensor on ``device``, bit for bit.  Always a copy:
+    the caller's buffer (possibly one the reference's runtime owns) is
+    never written by the port's in-place cache and parameter updates."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device, copy=True)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         return torch.tensor(a.view(np.uint16)).view(torch.bfloat16) \
@@ -137,38 +144,138 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.tensor(a).to(device)
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy on the host; bfloat16 as ``ml_dtypes`` holds it
+    (the reference's own dtype, imported only when needed)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _stacked_prefixes(cfg) -> tuple:
+    """The reference tree's layer-stacked subtrees for ``cfg``: each
+    leaf under one has a leading layer axis, row i of which is layer i's
+    parameter in the port (``layers.i.attn.wq``)."""
+    if cfg.family == "hybrid":
+        return (("layers", "mamba"),)
+    out = [("layers",)]
+    if cfg.family == "moe" and cfg.first_dense_layers:
+        out.append(("dense_layers",))
+    if cfg.family == "encdec":
+        out.append(("enc_layers",))
+    return tuple(out)
+
+
+def stack_tree(named) -> dict:
+    """{port name: tensor} (``named_parameters()``, or AdamW moments
+    keyed the same way) -> the reference's tree: ``layers.3.attn.wq``
+    becomes row 3 of the stacked leaf ``["layers"]["attn"]["wq"]``
+    (``torch.stack`` on the tensors' device), every other name a path
+    of its own."""
+    rows: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        path = tuple(q for q in parts if not q.isdigit())
+        layer = [int(q) for q in parts if q.isdigit()]
+        if layer:
+            rows.setdefault(path, {})[layer[0]] = t.detach()
+        else:
+            rows[path] = t.detach()
+    tree: dict = {}
+    for path, v in rows.items():
+        node = tree
+        for q in path[:-1]:
+            node = node.setdefault(q, {})
+        node[path[-1]] = (torch.stack([v[i] for i in range(len(v))])
+                          if isinstance(v, dict) else v)
+    return tree
+
+
+def unstack_tree(cfg, tree) -> dict:
+    """The reverse of ``stack_tree``: the reference's tree (numpy or
+    tensor leaves) -> {port name: leaf}, a stacked leaf split into its
+    rows (views)."""
+    prefixes = _stacked_prefixes(cfg)
+    out = {}
+
+    def walk(node, path):
+        for key, value in node.items():
+            p = path + (key,)
+            if isinstance(value, dict):
+                walk(value, p)
+                continue
+            pre = next((q for q in prefixes if p[:len(q)] == q), None)
+            if pre is None:
+                out[".".join(p)] = value
+                continue
+            for i in range(value.shape[0]):
+                out[".".join(pre + (str(i),) + p[len(pre):])] = value[i]
+
+    walk(tree, ())
+    return out
+
+
+def _tree_to_numpy(tree):
+    """Every tensor leaf of a dict tree as numpy (``_numpy``)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to_numpy(v) for k, v in tree.items()}
+    return _numpy(tree)
+
+
+def load_model_params(model: "lm.Model", tree) -> "lm.Model":
+    """Fill ``model``'s parameters, in place, from the reference's
+    ``M.init`` tree (numpy or tensor leaves, stacked): every parameter
+    exactly once, in its own dtype and shape."""
+    params = dict(model.named_parameters())
+    src = unstack_tree(model.cfg, tree)
+    if sorted(src) != sorted(params):
+        raise ValueError(f"the tree names {sorted(set(src) ^ set(params))} "
+                         f"that the model does not, or the reverse")
+    with torch.no_grad():
+        for name, p in params.items():
+            t = _tensor(src[name], p.device)
+            if t.shape != p.shape or t.dtype != p.dtype:
+                raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} "
+                                 f"against {tuple(p.shape)} {p.dtype}")
+            p.copy_(t)
+    return model
+
+
 def model_params_from_numpy(cfg, tree, device="cuda") -> "lm.Model":
     """The reference's ``M.init(cfg, key)`` tree (numpy leaves) -> the
     port's ``Model`` on ``device``: every stacked leaf's row i goes to
     layer i of the matching ``ModuleList``; every parameter must be
     filled exactly once."""
-    model = lm.Model(cfg, device)
-    filled = []
+    return load_model_params(lm.Model(cfg, device), tree)
 
-    def load(module, sub, take):
-        for name, value in sub.items():
-            child = getattr(module, name)
-            if isinstance(child, nn.ModuleList):
-                for i, blk in enumerate(child):
-                    load(blk, value, lambda a, i=i, t=take: t(a)[i])
-            elif isinstance(value, dict):
-                load(child, value, take)
-            else:
-                src = _tensor(take(value), child.device)
-                if src.shape != child.shape or src.dtype != child.dtype:
-                    raise ValueError(f"{name}: {tuple(src.shape)} "
-                                     f"{src.dtype} against "
-                                     f"{tuple(child.shape)} {child.dtype}")
-                with torch.no_grad():
-                    child.copy_(src)
-                filled.append(child)
 
-    load(model, tree, lambda a: a)
-    if len({id(p) for p in filled}) != len(filled) or \
-            len(filled) != len(list(model.parameters())):
-        raise ValueError(f"the tree filled {len(filled)} of "
-                         f"{len(list(model.parameters()))} parameters")
-    return model
+def model_params_to_numpy(model: "lm.Model") -> dict:
+    """The reverse of ``model_params_from_numpy``: the port's parameters
+    as the reference's ``M.init`` tree, stacked, as numpy."""
+    return _tree_to_numpy(stack_tree(dict(model.named_parameters())))
+
+
+def adamw_state_from_numpy(cfg, state, device="cuda") -> adamw.AdamWState:
+    """The reference's ``AdamWState(mu, nu, step)`` (trees of numpy or
+    tensor leaves, stacked) -> the port's, its moments keyed by the
+    port's parameter names, on ``device``."""
+    device = resolve_device(device)
+    return adamw.AdamWState(
+        mu={k: _tensor(v, device)
+            for k, v in unstack_tree(cfg, state.mu).items()},
+        nu={k: _tensor(v, device)
+            for k, v in unstack_tree(cfg, state.nu).items()},
+        step=int(state.step))
+
+
+def adamw_state_to_numpy(state: adamw.AdamWState) -> adamw.AdamWState:
+    """The reverse: the port's AdamW state as the reference's, stacked,
+    as numpy (``step`` an int32 scalar, as ``adamw.init`` makes it)."""
+    return adamw.AdamWState(mu=_tree_to_numpy(stack_tree(state.mu)),
+                            nu=_tree_to_numpy(stack_tree(state.nu)),
+                            step=np.int32(state.step))
 
 
 def model_cache_from_numpy(cfg, tree, device="cuda") -> dict:

@@ -8,13 +8,15 @@ KV blocks; ``dense_attention`` is the direct form (decode steps,
 cross-attention, short sequences).  Numerics as in the reference: scores
 in f32, softcap before the additive mask (``NEG_INF = -2**30``), GQA by
 head-group reshape (no KV repetition).  ``scaled_dot_product_attention``
-is not used: it has no softcap, and its masking differs.
+is not used: it has no softcap, and its masking differs.  The KV-cache
+write (``write_at``) is in place and serves decoding only: the training
+path passes no cache.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import Leaves, rope, softcap
+from repro_torch.models.layers import Leaves, checkpointed, rope, softcap
 
 NEG_INF = -2.0 ** 30
 
@@ -54,10 +56,15 @@ def dense_attention(q, k, v, q_pos, k_pos, *, window, causal=True,
 
 
 def flash_attention(q, k, v, q_pos, k_pos, *, window, causal=True,
-                    attn_softcap=None, block_q=512, block_k=512):
+                    attn_softcap=None, block_q=512, block_k=512, remat=True):
     """Blockwise online-softmax attention: peak memory per step is
     (B, KV, G, block_q, block_k), independent of S.  Both S_q and S_k
-    must divide their block sizes (callers pad)."""
+    must divide their block sizes (callers pad).
+
+    With ``remat`` each q-block step and each kv-block step is
+    checkpointed, as the reference's are: the backward pass recomputes a
+    q-block's score tiles instead of keeping one (block_q, S_k) panel per
+    q-block, and keeps only the (m, l, acc) carries of each kv step."""
     b, sq, h, dh = q.shape
     sk = k.shape[1]
     kv = k.shape[2]
@@ -71,10 +78,21 @@ def flash_attention(q, k, v, q_pos, k_pos, *, window, causal=True,
     qh = q.reshape(b, sq, kv, g, dh).permute(0, 2, 3, 1, 4)
     kh = k.permute(0, 2, 1, 3)
     vh = v.permute(0, 2, 1, 3)
-    outs = []
-    for q0 in range(0, sq, block_q):
-        qblk = qh[:, :, :, q0: q0 + block_q]
-        qp = q_pos[q0: q0 + block_q]
+
+    def kv_step(qblk, qp, m, l, acc, kblk, vblk, kp):
+        s = torch.einsum("bkgqd,bksd->bkgqs", qblk, kblk)
+        s = s.float() / (dh ** 0.5)
+        s = softcap(s, attn_softcap)
+        s = s + _mask(qp, kp, window, causal)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bksd->bkgqd", p.to(vblk.dtype), vblk).float()
+        return m_new, l, acc
+
+    def q_step(qblk, qp):
         m = torch.full((b, kv, g, block_q), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros((b, kv, g, block_q), dtype=torch.float32,
@@ -82,33 +100,28 @@ def flash_attention(q, k, v, q_pos, k_pos, *, window, causal=True,
         acc = torch.zeros((b, kv, g, block_q, dh), dtype=torch.float32,
                           device=q.device)
         for k0 in range(0, sk, block_k):
-            kblk = kh[:, :, k0: k0 + block_k]
-            vblk = vh[:, :, k0: k0 + block_k]
-            s = torch.einsum("bkgqd,bksd->bkgqs", qblk, kblk)
-            s = s.float() / (dh ** 0.5)
-            s = softcap(s, attn_softcap)
-            s = s + _mask(qp, k_pos[k0: k0 + block_k], window, causal)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(s - m_new[..., None])
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bkgqs,bksd->bkgqd", p.to(vblk.dtype), vblk).float()
-            m = m_new
-        outs.append((acc / torch.clamp(l, min=1e-30)[..., None])
-                    .to(q.dtype))
+            m, l, acc = checkpointed(
+                kv_step, remat, qblk, qp, m, l, acc,
+                kh[:, :, k0: k0 + block_k], vh[:, :, k0: k0 + block_k],
+                k_pos[k0: k0 + block_k])
+        return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+
+    outs = [checkpointed(q_step, remat, qh[:, :, :, q0: q0 + block_q],
+                         q_pos[q0: q0 + block_q])
+            for q0 in range(0, sq, block_q)]
     out = torch.cat(outs, dim=3)                  # (B, KV, G, Sq, Dh)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh)
 
 
 def best_attention(q, k, v, q_pos, k_pos, *, window, causal=True,
-                   attn_softcap=None):
+                   attn_softcap=None, remat=True):
     """Dense below 1,024 positions (or off the 512 grid), flash above:
     the score matrix must never materialize at prefill/train scale."""
     sq, sk = q.shape[1], k.shape[1]
     if sq >= 1024 and sk >= 1024 and sq % 512 == 0 and sk % 512 == 0:
         return flash_attention(q, k, v, q_pos, k_pos, window=window,
-                               causal=causal, attn_softcap=attn_softcap)
+                               causal=causal, attn_softcap=attn_softcap,
+                               remat=remat)
     return dense_attention(q, k, v, q_pos, k_pos, window=window,
                            causal=causal, attn_softcap=attn_softcap)
 
@@ -122,7 +135,7 @@ def write_at(buf, new, pos: int):
 
 
 def attention_block(params, x, positions, *, cfg, window, kv_cache=None,
-                    cache_pos=None):
+                    cache_pos=None, remat=True):
     """Full projection + RoPE + attention (+ the KV-cache update).
 
     kv_cache: dict(k=(B, Smax, KV, Dh), v=...) or None; written IN PLACE
@@ -146,9 +159,12 @@ def attention_block(params, x, positions, *, cfg, window, kv_cache=None,
         # term of the mask hides them
         out = dense_attention(q, ck, cv, positions, k_pos, window=window,
                               causal=True, attn_softcap=cfg.attn_softcap)
+    elif s > 1:
+        out = flash_attention(q, k, v, positions, positions, window=window,
+                              causal=True, attn_softcap=cfg.attn_softcap,
+                              remat=remat)
     else:
-        fn = flash_attention if s > 1 else dense_attention
-        out = fn(q, k, v, positions, positions, window=window, causal=True,
-                 attn_softcap=cfg.attn_softcap)
+        out = dense_attention(q, k, v, positions, positions, window=window,
+                              causal=True, attn_softcap=cfg.attn_softcap)
     out = out.reshape(b, s, h * dh)
     return out @ params.wo, kv_cache

@@ -16,6 +16,10 @@ axis), not ``d_in`` — a quirk kept for parity, so a block built with
 ``stack=n`` draws with ``fan_in = n``.  The reference's partition specs,
 ``maybe_shard`` and ``shard_residual`` have no counterpart on one card
 (they are no-ops off-mesh there).
+
+Every weight is a trainable ``nn.Parameter``.  ``checkpointed`` is the
+reference's ``jax.checkpoint``: the models call it at the reference's
+remat points, and it recomputes only where autograd records the call.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -50,8 +55,7 @@ class Leaves(nn.Module):
         else:
             fan_in = shape[0] if len(shape) >= 2 else 1
         self.register_parameter(name, nn.Parameter(
-            torch.empty(shape, dtype=self._dtype, device=self._device),
-            requires_grad=False))
+            torch.empty(shape, dtype=self._dtype, device=self._device)))
         self._init[name] = (scale, fan_in)
 
 
@@ -71,6 +75,15 @@ def init_leaves(module: nn.Module, generator: torch.Generator) -> None:
                 draw = torch.randn(p.shape, generator=generator,
                                    dtype=torch.float32, device=p.device)
                 p.copy_(draw * (scale / fan_in ** 0.5))
+
+
+def checkpointed(fn, remat: bool, *args):
+    """``fn(*args)``, its activations recomputed in the backward pass
+    instead of kept (``jax.checkpoint``) when ``remat`` is set and
+    autograd records the call."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # --------------------------------------------------------------------------

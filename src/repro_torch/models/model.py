@@ -17,9 +17,11 @@ is a ``ModuleList`` here), ``init`` fills them from a
 takes ``params``: ``forward``, ``loss_fn``, ``prefill`` and
 ``decode_step``.  Caches are dicts of stacked tensors with the
 reference's names and shapes (``init_cache``); ``prefill`` and
-``decode_step`` write them in place and return them, so the reference's
-``_merge_hybrid_cache`` (which reassembles scanned outputs) has no
-counterpart.
+``decode_step`` write them in place, without autograd, and return them,
+so the reference's ``_merge_hybrid_cache`` (which reassembles scanned
+outputs) has no counterpart.  ``forward``, ``forward_hidden`` and
+``loss_fn`` take no cache and are differentiable in every parameter,
+with the reference's remat points (``remat=True``).
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
-from repro_torch.models.layers import (DTYPES, Embed, Leaves, embed_lookup,
+from repro_torch.models.layers import (DTYPES, Embed, Leaves, checkpointed,
+                                       embed_lookup,
                                        init_leaves, rms_norm,
                                        scale_embedding, unembed)
 
@@ -163,14 +166,16 @@ def _embed_inputs(cfg, params, batch):
     return x
 
 
-def _encode(cfg, params, batch, dtype):
+def _encode(cfg, params, batch, dtype, remat=True):
     enc_x = batch["frames"].to(dtype) @ params.enc_proj
     enc_pos = torch.arange(enc_x.shape[1], device=enc_x.device)
-    enc_out = tf.encoder_stack(cfg, params.enc_layers, enc_x, enc_pos)
+    enc_out = tf.encoder_stack(cfg, params.enc_layers, enc_x, enc_pos,
+                               remat)
     return rms_norm(enc_out, params.enc_norm, cfg.norm_eps), enc_pos
 
 
-def _attn_families(cfg, params, x, positions, windows, cache, cache_pos):
+def _attn_families(cfg, params, x, positions, windows, cache, cache_pos,
+                   remat=True):
     """dense / vlm / moe: the (leading dense and) main attention stacks."""
     if cfg.family == "moe" and cfg.first_dense_layers:
         nd = cfg.first_dense_layers
@@ -178,31 +183,37 @@ def _attn_families(cfg, params, x, positions, windows, cache, cache_pos):
         x, _, _ = tf.attn_stack(dcfg, params.dense_layers, x, positions,
                                 windows[:nd], kind="dense",
                                 cache=None if cache is None
-                                else cache["dense"], cache_pos=cache_pos)
+                                else cache["dense"], cache_pos=cache_pos,
+                                remat=remat)
         x, _, aux = tf.attn_stack(cfg, params.layers, x, positions,
                                   windows[nd:], kind="moe",
                                   cache=None if cache is None
-                                  else cache["moe"], cache_pos=cache_pos)
+                                  else cache["moe"], cache_pos=cache_pos,
+                                  remat=remat)
         return x, cache, aux
     kind = "moe" if cfg.family == "moe" else "dense"
     return tf.attn_stack(cfg, params.layers, x, positions, windows,
-                         kind=kind, cache=cache, cache_pos=cache_pos)
+                         kind=kind, cache=cache, cache_pos=cache_pos,
+                         remat=remat)
 
 
-def forward(cfg: ArchConfig, params, batch):
+def forward(cfg: ArchConfig, params, batch, *, remat=True):
     """Full-sequence forward -> (logits (B, S, V_padded), aux)."""
-    x, aux = forward_hidden(cfg, params, batch)
+    x, aux = forward_hidden(cfg, params, batch, remat=remat)
     logits = unembed(params.embed, x, cap=cfg.logit_softcap,
                      vocab=cfg.vocab_size)
     return logits, aux
 
 
-def forward_hidden(cfg: ArchConfig, params, batch):
+def forward_hidden(cfg: ArchConfig, params, batch, *, remat=True):
     """Full-sequence forward -> (final-norm hidden states (B, S, D), aux).
 
     batch: {"tokens": (B, S)} + family extras
     ("patches": (B, P, frontend_dim) for vlm;
      "frames": (B, S_enc, frontend_dim) for encdec).
+    remat: checkpoint at the reference's remat points (every block body,
+    flash attention's q- and kv-block steps, the SSM scan's chunk step);
+    with False nothing is recomputed in the backward pass.
     """
     x = _embed_inputs(cfg, params, batch)
     s = x.shape[1]
@@ -210,22 +221,24 @@ def forward_hidden(cfg: ArchConfig, params, batch):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("dense", "vlm", "moe"):
         x, _, aux = _attn_families(cfg, params, x, positions,
-                                   cfg.layer_windows(s), None, None)
+                                   cfg.layer_windows(s), None, None, remat)
     elif cfg.family == "ssm":
-        x, _ = tf.ssm_stack(cfg, params.layers, x)
+        x, _ = tf.ssm_stack(cfg, params.layers, x, remat=remat)
     elif cfg.family == "hybrid":
-        x = tf.hybrid_stack(cfg, params.layers, x, positions)
+        x = tf.hybrid_stack(cfg, params.layers, x, positions, remat=remat)
     elif cfg.family == "encdec":
-        enc_out, enc_pos = _encode(cfg, params, batch, x.dtype)
+        enc_out, enc_pos = _encode(cfg, params, batch, x.dtype, remat)
         x, _ = tf.decoder_xattn_stack(cfg, params.layers, x, positions,
-                                      enc_out, enc_pos)
+                                      enc_out, enc_pos, remat=remat)
     x = rms_norm(x, params.final_norm, cfg.norm_eps)
     return x, aux
 
 
-def _chunked_ce(cfg, params, h, tgt):
+def _chunked_ce(cfg, params, h, tgt, remat=True):
     """Mean next-token cross entropy, the batch in chunks (as the
-    reference chunks it, so no (T, V) f32 logits for the whole batch)."""
+    reference chunks it, so no (T, V) f32 logits for the whole batch);
+    with ``remat`` each chunk is checkpointed, so its logits are
+    recomputed in the backward pass instead of kept."""
     b, s, d = h.shape
     nb = 1
     for cand in (16, 8, 4, 2):
@@ -236,30 +249,37 @@ def _chunked_ce(cfg, params, h, tgt):
     # j, j + nb, j + 2 nb, ...
     hb = h.reshape(b // nb, nb, s, d).transpose(0, 1)
     tb = tgt.reshape(b // nb, nb, s).transpose(0, 1)
-    total = torch.zeros((), dtype=torch.float32, device=h.device)
-    for hc, tc in zip(hb, tb):
+
+    def chunk(hc, tc):
         lg = unembed(params.embed, hc, cap=cfg.logit_softcap,
                      vocab=cfg.vocab_size).float()
         lse = torch.logsumexp(lg, dim=-1)
         true = torch.gather(lg, -1, tc[..., None].long())[..., 0]
-        total = total + torch.sum(lse - true)
+        return torch.sum(lse - true)
+
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for hc, tc in zip(hb, tb):
+        total = total + checkpointed(chunk, remat, hc, tc)
     return total / (b * s)
 
 
-def loss_fn(cfg: ArchConfig, params, batch, *, aux_weight=0.01):
-    """Next-token cross entropy (f32 logsumexp, chunked) + MoE aux loss.
-    Forward only here: the backward pass comes with the training slice."""
-    hidden, aux = forward_hidden(cfg, params, batch)
+def loss_fn(cfg: ArchConfig, params, batch, *, aux_weight=0.01, remat=True):
+    """Next-token cross entropy (f32 logsumexp, chunked) + MoE aux loss,
+    differentiable in every parameter (``remat`` as in
+    ``forward_hidden``, and for each chunk of the cross entropy)."""
+    hidden, aux = forward_hidden(cfg, params, batch, remat=remat)
     tokens = batch["tokens"]
     if cfg.family == "vlm":   # text tail only
         hidden = hidden[:, -tokens.shape[1]:]
-    loss = _chunked_ce(cfg, params, hidden[:, :-1], tokens[:, 1:])
+    loss = _chunked_ce(cfg, params, hidden[:, :-1], tokens[:, 1:], remat)
     return loss + aux_weight * aux
 
 
+@torch.no_grad()
 def prefill(cfg: ArchConfig, params, batch, cache):
     """Populate the decode cache from a full prompt (written at offset 0,
-    in place); returns (last-token logits (B, 1, V), cache)."""
+    in place, without autograd); returns (last-token logits (B, 1, V),
+    cache)."""
     x = _embed_inputs(cfg, params, batch)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
@@ -288,9 +308,11 @@ def _hybrid(cfg, params, x, positions, cache, pos):
         cache={"k": cache["attn_k"], "v": cache["attn_v"]}, cache_pos=pos)
 
 
+@torch.no_grad()
 def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
-    """One-token decode.  tokens: (B, 1); pos: the write offset, one for
-    every row.  Returns (logits (B, 1, V), cache)."""
+    """One-token decode, without autograd (the cache is written in
+    place).  tokens: (B, 1); pos: the write offset, one for every row.
+    Returns (logits (B, 1, V), cache)."""
     x = scale_embedding(embed_lookup(params.embed, tokens), cfg.d_model)
     positions = int(pos) + torch.arange(1, device=x.device)
     if cfg.family in ("dense", "vlm", "moe"):

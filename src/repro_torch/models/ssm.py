@@ -24,7 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Leaves
+from repro_torch.models.layers import Leaves, checkpointed
 
 
 def _assoc(e1, e2):
@@ -74,26 +74,25 @@ def associative_scan(fn, elems, axis):
     return scan(tuple(elems))
 
 
-def fused_ssm_scan(dt, a, bmat, cmat, x, h0, chunk, variant):
+def fused_ssm_scan(dt, a, bmat, cmat, x, h0, chunk, variant, remat=True):
     """Chunked selective scan with fused output contraction.
 
     mamba1: dt (B,S,Di), a (Di,N), bmat/cmat (B,S,N), x (B,S,Di),
             h (B,Di,N)  -> y (B,S,Di)
     mamba2: dt (B,S,nh), a (nh,), bmat/cmat (B,S,N), x (B,S,nh,hd),
             h (B,nh,hd,N) -> y (B,S,nh,hd)
-    Returns (y in f32, last state).
+    Returns (y in f32, last state).  With ``remat`` each chunk's step is
+    checkpointed, as the reference's is: the backward pass recomputes the
+    chunk's (B, chunk, ..., N) expanded state instead of keeping it for
+    every chunk.
     """
     s = dt.shape[1]
     chunk = min(chunk, s)
     while s % chunk:          # ragged prompts: largest divisor <= requested
         chunk -= 1
-    h = h0
-    ys = []
-    for c0 in range(0, s, chunk):
-        dtc = dt[:, c0: c0 + chunk].float()
-        bc = bmat[:, c0: c0 + chunk].float()
-        cc = cmat[:, c0: c0 + chunk].float()
-        xc = x[:, c0: c0 + chunk].float()
+
+    def step(h, dtc, bc, cc, xc):
+        dtc, bc, cc, xc = dtc.float(), bc.float(), cc.float(), xc.float()
         if variant == "mamba1":
             da = torch.exp(dtc[..., None] * a)                  # (B,c,Di,N)
             db = (dtc * xc)[..., None] * bc[:, :, None, :]       # (B,c,Di,N)
@@ -104,10 +103,18 @@ def fused_ssm_scan(dt, a, bmat, cmat, x, h0, chunk, variant):
         aa, bb = associative_scan(_assoc, (da, db), axis=1)
         h_all = aa * h[:, None] + bb        # (B, chunk, ..., N)
         if variant == "mamba1":
-            ys.append(torch.einsum("bcdn,bcn->bcd", h_all, cc))
+            y = torch.einsum("bcdn,bcn->bcd", h_all, cc)
         else:
-            ys.append(torch.einsum("bchdn,bcn->bchd", h_all, cc))
-        h = h_all[:, -1]
+            y = torch.einsum("bchdn,bcn->bchd", h_all, cc)
+        return h_all[:, -1].clone(), y      # a copy: h_all is freed
+
+    h = h0
+    ys = []
+    for c0 in range(0, s, chunk):
+        h, y = checkpointed(step, remat, h, dt[:, c0: c0 + chunk],
+                            bmat[:, c0: c0 + chunk], cmat[:, c0: c0 + chunk],
+                            x[:, c0: c0 + chunk])
+        ys.append(y)
     return torch.cat(ys, dim=1), h
 
 
@@ -147,7 +154,8 @@ class Mamba1(Leaves):
         self.leaf("out_proj", (di, d), 1.0)
 
 
-def mamba1_block(params, x, cfg, ssm_state=None, conv_state=None):
+def mamba1_block(params, x, cfg, ssm_state=None, conv_state=None,
+                 remat=True):
     """x: (B, S, D).  ssm_state: (B, Di, N) f32 decode carry.
 
     Returns (y, new_ssm_state, new_conv_state).
@@ -167,7 +175,7 @@ def mamba1_block(params, x, cfg, ssm_state=None, conv_state=None):
           else torch.zeros((bsz, di, n), dtype=torch.float32,
                            device=x.device))
     y, h_last = fused_ssm_scan(dt, a, bmat, cmat, xi, h0, cfg.ssm_chunk,
-                               "mamba1")
+                               "mamba1", remat)
     y = y.to(x.dtype) + params.d_skip * xi
     y = y * F.silu(z)
     return y @ params.out_proj, h_last, new_conv
@@ -190,7 +198,8 @@ class Mamba2(Leaves):
         self.leaf("out_proj", (di, d), 1.0)
 
 
-def mamba2_block(params, x, cfg, ssm_state=None, conv_state=None):
+def mamba2_block(params, x, cfg, ssm_state=None, conv_state=None,
+                 remat=True):
     """x: (B, S, D).  ssm_state: (B, nh, hd, N) f32."""
     bsz, s, d = x.shape
     di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
@@ -207,7 +216,7 @@ def mamba2_block(params, x, cfg, ssm_state=None, conv_state=None):
           else torch.zeros((bsz, nh, hd, n), dtype=torch.float32,
                            device=x.device))
     y, h_last = fused_ssm_scan(dt, a, bmat, cmat, xh, h0, cfg.ssm_chunk,
-                               "mamba2")
+                               "mamba2", remat)
     y = y.to(x.dtype) + params.d_skip[None, None, :, None] * xh
     y = y.reshape(bsz, s, di)
     # gated RMSNorm (mamba2's norm-before-out)

@@ -1,15 +1,20 @@
-"""Serve and eval steps — the units the serving engine and launchers call.
+"""Train, eval and serve steps — the units the launchers call.
 
-Port of ``repro/models/steps.py``'s inference half:
+Port of ``repro/models/steps.py``:
 
+``make_train_step(cfg)``   -> step(model, opt_state, batch) ->
+                              (model, opt_state, metrics)
+``make_eval_step(cfg)``    -> step(params, batch) -> loss
 ``make_prefill_step(cfg)`` -> step(params, batch, cache) -> (logits, cache)
 ``make_decode_step(cfg)``  -> step(params, tokens, cache, pos) ->
                               (logits, cache)
-``make_eval_step(cfg)``    -> step(params, batch) -> loss
 
-The steps close over the (frozen) ``ArchConfig`` and run without
-autograd.  ``make_train_step`` needs ``optim/`` and the port's backward
-pass, and comes with the training slice.
+The steps close over the (frozen) ``ArchConfig``.  The train step takes
+the loss and every parameter's gradient through autograd (the
+reference's ``jax.value_and_grad(M.loss_fn)``, with its remat points),
+then ``adamw.update``, which writes the parameters in place; ``metrics``
+holds ``loss``, ``grad_norm`` (0-d tensors on the model's device) and
+``lr``.  The eval and serve steps run without autograd.
 """
 from __future__ import annotations
 
@@ -17,6 +22,23 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
+from repro_torch.optim import adamw
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
+                    *, remat: bool = True):
+    opt_cfg = opt_cfg or adamw.AdamWConfig()
+
+    def step(model, opt_state, batch):
+        params = dict(model.named_parameters())
+        loss = M.loss_fn(cfg, model, batch, remat=remat)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        _, opt_state, metrics = adamw.update(
+            opt_cfg, dict(zip(params, grads)), opt_state, params)
+        del grads
+        return model, opt_state, dict(metrics, loss=loss.detach())
+
+    return step
 
 
 def make_eval_step(cfg: ArchConfig):

@@ -12,8 +12,10 @@ and the scan is a Python loop.  Heterogeneity stays data, as there:
 
 KV / SSM caches keep the reference's stacked layout (a leading layer
 axis); each layer reads and writes its slice IN PLACE, so a stack
-returns the cache it was given.  Remat is a training matter and waits
-for the training slice.
+returns the cache it was given.  Remat is the reference's: with
+``remat`` every block body (the attn, ssm, hybrid mamba and encoder
+stacks, and the decoder's cross-attention stack) is checkpointed, so
+the backward pass keeps only each block's input.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ from torch import nn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (Attention, attention_block,
                                           best_attention)
-from repro_torch.models.layers import (GatedMLP, Leaves, gated_mlp, rms_norm,
-                                       rope)
+from repro_torch.models.layers import (GatedMLP, Leaves, checkpointed,
+                                       gated_mlp, rms_norm, rope)
 from repro_torch.models.moe import MoE, moe_layer
 
 BIG_WINDOW = 2 ** 30
@@ -82,10 +84,11 @@ def stack(block, cfg, n, dtype, device) -> nn.ModuleList:
 # --------------------------------------------------------------------------
 
 def _apply_attn_block(p, x, positions, cfg, window, cache, cache_pos,
-                      ffn_fn):
+                      ffn_fn, remat=True):
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     a, cache = attention_block(p.attn, h, positions, cfg=cfg, window=window,
-                               kv_cache=cache, cache_pos=cache_pos)
+                               kv_cache=cache, cache_pos=cache_pos,
+                               remat=remat)
     x = x + a
     h = rms_norm(x, p.ln2, cfg.norm_eps)
     y, aux = ffn_fn(p, h)
@@ -114,40 +117,50 @@ def _layer(cache, i):
 # --------------------------------------------------------------------------
 
 def attn_stack(cfg, blocks, x, positions, windows, *, kind, cache=None,
-               cache_pos=None):
+               cache_pos=None, remat=True):
     """A dense or MoE decoder.  Returns (x, cache, aux).
 
     windows: per-layer attention window (ints).
     cache: dict(k=(L,B,Smax,KV,Dh), v=...) or None.
     """
     ffn = _dense_ffn(cfg) if kind == "dense" else _moe_ffn(cfg)
+
+    def body(x, p, w, c):
+        x, _, a = _apply_attn_block(p, x, positions, cfg, w, c, cache_pos,
+                                    ffn, remat)
+        return x, a
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (p, w) in enumerate(zip(blocks, windows)):
-        x, _, a = _apply_attn_block(p, x, positions, cfg, w,
-                                    _layer(cache, i), cache_pos, ffn)
+        x, a = checkpointed(body, remat, x, p, w, _layer(cache, i))
         aux = aux + a
     return x, cache, aux
 
 
-def _ssm_layer(cfg, p, x, states, i, block):
+def _ssm_layer(cfg, p, x, states, i, block, remat):
     st = _layer(states, i)
-    h = rms_norm(x, p.ln, cfg.norm_eps)
-    y, s_out, c_out = block(p.mixer, h, cfg,
-                            None if st is None else st["ssm"],
-                            None if st is None else st["conv"])
+
+    def body(x):
+        h = rms_norm(x, p.ln, cfg.norm_eps)
+        y, s_out, c_out = block(p.mixer, h, cfg,
+                                None if st is None else st["ssm"],
+                                None if st is None else st["conv"], remat)
+        return x + y, s_out, c_out
+
+    x, s_out, c_out = checkpointed(body, remat, x)
     if st is not None:
         st["ssm"].copy_(s_out)
         st["conv"].copy_(c_out)
-    return x + y
+    return x
 
 
-def ssm_stack(cfg, blocks, x, *, states=None):
+def ssm_stack(cfg, blocks, x, *, states=None, remat=True):
     """A mamba decoder.  states: dict(ssm=(L,B,...), conv=(L,B,W-1,Dc))
     or None, advanced in place.  Returns (x, states)."""
     block = (ssm_mod.mamba1_block if cfg.ssm_variant == "mamba1"
              else ssm_mod.mamba2_block)
     for i, p in enumerate(blocks):
-        x = _ssm_layer(cfg, p, x, states, i, block)
+        x = _ssm_layer(cfg, p, x, states, i, block, remat)
     return x, states
 
 
@@ -161,14 +174,16 @@ class Hybrid(nn.Module):
 
 
 def hybrid_stack(cfg, params, x, positions, *, states=None, cache=None,
-                 cache_pos=None):
+                 cache_pos=None, remat=True):
     """zamba2: groups of ``hybrid_attn_every`` mamba2 blocks, each group
     followed by the ONE shared attention block (same weights every
     group), leftover mamba blocks last.
 
     states: dict(ssm=, conv=) over all n_layers; cache: the shared
     block's per-group KV cache dict(k=(G,B,Smax,KV,Dh), v=).  Both are
-    advanced in place.  Returns x.
+    advanced in place.  Returns x.  As in the reference, each mamba
+    block is checkpointed and the shared block is not (its flash
+    attention steps are).
     """
     k = cfg.hybrid_attn_every
     n_groups = cfg.n_layers // k
@@ -177,40 +192,46 @@ def hybrid_stack(cfg, params, x, positions, *, states=None, cache=None,
     for g in range(n_groups):
         for i in range(g * k, (g + 1) * k):
             x = _ssm_layer(cfg, params.mamba[i], x, states, i,
-                           ssm_mod.mamba2_block)
+                           ssm_mod.mamba2_block, remat)
         x, _, _ = _apply_attn_block(params.shared_attn, x, positions, cfg,
-                                    window, _layer(cache, g), cache_pos, ffn)
+                                    window, _layer(cache, g), cache_pos, ffn,
+                                    remat)
     for i in range(n_groups * k, cfg.n_layers):
         x = _ssm_layer(cfg, params.mamba[i], x, states, i,
-                       ssm_mod.mamba2_block)
+                       ssm_mod.mamba2_block, remat)
     return x
 
 
-def encoder_stack(cfg, blocks, x, positions):
+def encoder_stack(cfg, blocks, x, positions, remat=True):
     """Bidirectional encoder (full window, no mask)."""
     ffn = _dense_ffn(cfg)
-    for p in blocks:
+
+    def body(x, p):
         h = rms_norm(x, p.ln1, cfg.norm_eps)
-        x = x + _noncausal_self_attn(p.attn, h, positions, cfg)
+        x = x + _noncausal_self_attn(p.attn, h, positions, cfg, remat)
         h = rms_norm(x, p.ln2, cfg.norm_eps)
         y, _ = ffn(p, h)
-        x = x + y
+        return x + y
+
+    for p in blocks:
+        x = checkpointed(body, remat, x, p)
     return x
 
 
-def _noncausal_self_attn(p, x, positions, cfg):
+def _noncausal_self_attn(p, x, positions, cfg, remat=True):
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = rope((x @ p.wq).reshape(b, s, h, dh), positions, cfg.rope_theta)
     k = rope((x @ p.wk).reshape(b, s, kv, dh), positions, cfg.rope_theta)
     v = (x @ p.wv).reshape(b, s, kv, dh)
     o = best_attention(q, k, v, positions, positions, window=BIG_WINDOW,
-                       causal=False, attn_softcap=cfg.attn_softcap)
+                       causal=False, attn_softcap=cfg.attn_softcap,
+                       remat=remat)
     return o.reshape(b, s, h * dh) @ p.wo
 
 
 def decoder_xattn_stack(cfg, blocks, x, positions, enc_out, enc_positions,
-                        *, cache=None, cache_pos=None):
+                        *, cache=None, cache_pos=None, remat=True):
     """Enc-dec decoder: causal self-attn + cross-attn + MLP per layer.
 
     cache: dict(k=, v= (self), xk=, xv= (cross)) stacked.  With
@@ -221,14 +242,13 @@ def decoder_xattn_stack(cfg, blocks, x, positions, enc_out, enc_positions,
     """
     ffn = _dense_ffn(cfg)
     h_, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    cross = []
-    for i, p in enumerate(blocks):
-        c = _layer(cache, i)
+
+    def body(x, p, c, enc_out):
         h = rms_norm(x, p.ln1, cfg.norm_eps)
         a, _ = attention_block(
             p.attn, h, positions, cfg=cfg, window=BIG_WINDOW,
             kv_cache=None if c is None else {"k": c["k"], "v": c["v"]},
-            cache_pos=cache_pos)
+            cache_pos=cache_pos, remat=remat)
         x = x + a
         # cross attention: no rope, the encoder output as K/V
         h = rms_norm(x, p.ln_x, cfg.norm_eps)
@@ -238,16 +258,22 @@ def decoder_xattn_stack(cfg, blocks, x, positions, enc_out, enc_positions,
             se = enc_out.shape[1]
             ck = (enc_out @ p.xattn.wk).reshape(b, se, kv, dh)
             cv = (enc_out @ p.xattn.wv).reshape(b, se, kv, dh)
-            cross.append((ck, cv))
         else:
             ck, cv = c["xk"], c["xv"]
         o = best_attention(q, ck, cv, positions, enc_positions,
                            window=BIG_WINDOW, causal=False,
-                           attn_softcap=cfg.attn_softcap)
+                           attn_softcap=cfg.attn_softcap, remat=remat)
         x = x + o.reshape(b, s, h_ * dh) @ p.xattn.wo
         h = rms_norm(x, p.ln2, cfg.norm_eps)
         y, _ = ffn(p, h)
-        x = x + y
+        return x + y, ck, cv
+
+    cross = []
+    for i, p in enumerate(blocks):
+        x, ck, cv = checkpointed(body, remat, x, p, _layer(cache, i),
+                                 enc_out)
+        if cache is not None:
+            cross.append((ck, cv))
     if cache is not None and enc_out is not None:
         cache = dict(cache, xk=torch.stack([c[0] for c in cross]),
                      xv=torch.stack([c[1] for c in cross]))

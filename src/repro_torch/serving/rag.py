@@ -23,6 +23,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
 
 
+@torch.no_grad()
 def embed_texts(cfg: ArchConfig, params, token_batches: np.ndarray
                 ) -> np.ndarray:
     """(N, S) int tokens -> (N, d_model) mean-pooled f32 embeddings."""

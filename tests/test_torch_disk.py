@@ -46,6 +46,8 @@ from repro_torch.core.filters import label_entry_points
 from repro_torch.store import io_engine as tio
 from repro_torch.store import layout as tlayout
 
+from test_torch_ingest import one_torch_thread  # noqa: F401
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SPEC = dict(degree=16, build_beam=32, n_bits=4, bucket_capacity=8,
             cache_frames=64)

@@ -60,7 +60,8 @@ def _t(a):
 
 
 def _close(got, want, rtol=RTOL, atol=ATOL):
-    np.testing.assert_allclose(got.numpy() if isinstance(got, torch.Tensor)
+    np.testing.assert_allclose(got.detach().numpy()
+                               if isinstance(got, torch.Tensor)
                                else got, np.asarray(want), rtol=rtol,
                                atol=atol)
 
@@ -278,7 +279,7 @@ def test_port_init_draws_the_reference_leaf_distributions(arch):
     assert sum(p.numel() for p in model.parameters()) == sum(
         int(np.prod(d["shape"])) for _, d in _decl_leaves(decl))
     for path, d in _decl_leaves(decl):
-        got = _port_leaf(model, path).numpy()
+        got = _port_leaf(model, path).detach().numpy()
         want = np.asarray(ref_leaf(ref, path))
         assert got.shape == d["shape"] == want.shape, path
         assert got.dtype == want.dtype == np.float32, path

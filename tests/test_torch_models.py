@@ -64,7 +64,7 @@ def _batch(cfg, seq=S):
 
 def _np(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().numpy()
     return np.asarray(x, np.float32)
 
 
