@@ -132,7 +132,18 @@ then:
    rtol 1e-5 of a straight run, under deterministic algorithms); and in
    the fourth process, gemma-2b at published widths cut to 2 layers in
    f32 trains 3 steps on the card and on the CPU from one draw (losses,
-   grad norms and parameters agree).
+   grad norms and parameters agree);
+10. the mesh over ``torch.distributed``, last, in the main process: a
+   world of one rank over NCCL on ``cuda:0`` (a ``file://`` store in a
+   temporary directory) on a (1, 1) ``DeviceMesh``.  The 1,000,000 x
+   768 table over a random regular graph of degree 64, beam 16, 3
+   batches of 4,096: the rank's search step and the one-card tuple step
+   from the same state, in turns, bit-equal in ids, distances, bucket
+   tables and step after every batch, with equal launches; their median
+   step ms, device busy ms and idle share.  Then ``reshard`` places
+   gemma-2b's published-width bf16 parameters on the mesh per
+   ``launch.train.build_shardings``; every ``full_tensor()`` equals its
+   source bit for bit.
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
@@ -147,7 +158,8 @@ its shadow and gated-off batches run the diskann path; a disk search
 launches no ``gather_distance``, its rerank being on the host; a
 sharded or tiered search launches, shard by shard and tier by tier,
 what ``PathSpy`` records; the mesh search each virtual device's
-catapult RAM step; the LM path and the training path launch nothing,
+catapult RAM step, and a rank's step as many as the tuple step; the LM
+path and the training path launch nothing,
 the RAG retrieval its Vamana build's and one catapult batch's).
 Any failed check exits non-zero.  Prints the
 card's name and power limit first, a ``{"kernels": [...]}`` line, and as
@@ -218,6 +230,7 @@ TIER_POLICY = dict(observe_every=1, baseline_every=8, min_batches=4)
 TIER_TICK = 2
 DEPLOY_SHARDS = 4              # 250,000 rows a shard at 1M x 768
 DEPLOY_HOT = 1024              # the 1M tiered layout's hot_capacity
+DIST_BATCHES = 3               # the world of one's batches of 4,096
 # streaming ingest: a database born empty at deployment width (d=768,
 # degree 64), puts of 64 keyed rows in turns with 64-query searches.  Cut
 # from make_medrag_zipf(n=4,096) and IngestSpec()'s cutover 256 and
@@ -5003,6 +5016,166 @@ class TierPhases:
         return False
 
 
+def phase_dist(vectors, seed: int, dev) -> dict:
+    """The mesh over ``torch.distributed``: a world of one rank (NCCL on
+    the card, gloo on the CPU) on a (1, 1) ``DeviceMesh``.  The search at
+    deployment width (the 1,000,000 x 768 table over a random regular
+    graph of degree 64, beam 16, 3 batches of 4,096): the rank's step
+    (``make_sharded_search(mesh, ...)`` on its ``shard_state``) and the
+    one-card tuple (1, 1) step from the same state, in turns, must give
+    bit-equal ids, distances, bucket tables and step after every batch
+    and launch ``lsh_hash`` and ``gather_distance`` as often; each
+    step's median wall ms, then one more profiled step each (device busy
+    ms, idle share against the median).  Then ``reshard`` places
+    gemma-2b's published-width bf16 parameters on the mesh per
+    ``build_shardings``, and every ``full_tensor()`` must equal its
+    source bit for bit."""
+    import torch.distributed as dist
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core import lsh as lsh_mod
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.beam_search import SearchSpec
+    from repro_torch.core.vamana import _random_regular_init
+    from repro_torch.ft.elastic import reshard
+    from repro_torch.launch import mesh as tm
+    from repro_torch.launch.train import build_shardings
+    from repro_torch.models import model as M
+    n, d = vectors.shape
+    rng = np.random.default_rng(seed + 3)
+    adj = torch.as_tensor(_random_regular_init(n, 64, rng), device=dev)
+    medoid = int(torch.argmin(torch.square(vectors - vectors.mean(0))
+                              .sum(1)))
+    lsh = lsh_mod.make_lsh(torch.Generator().manual_seed(seed), 8, d, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    rows = torch.randint(0, n, (DIST_BATCHES * B,), generator=gen,
+                         device=dev)
+    queries = vectors[rows] + 0.1 * torch.randn(
+        (DIST_BATCHES * B, d), generator=gen, device=dev)
+    spec = SearchSpec(beam_width=16, k=10, max_iters=64)
+    tables = ("bucket_ids", "bucket_stamp", "bucket_step")
+    out, paths = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tm.init_world(dev.type, init_method=f"file://{tmp}/store", rank=0,
+                      world_size=1)
+        try:
+            mesh = tm.make_local_mesh(1, 1, dev.type)
+            out["init_s"] = time.perf_counter() - t0
+            out["backend"] = dist.get_backend()
+            check(out["backend"] == ("nccl" if dev.type == "cuda"
+                                     else "gloo"),
+                  f"the world of one runs over {out['backend']}")
+            # the group's first collective sets up its communicator
+            # (about a second over NCCL): timed apart from the steps
+            t0 = time.perf_counter()
+            warm = [torch.empty(1, device=dev)]
+            dist.all_gather(warm, torch.ones(1, device=dev),
+                            group=mesh.get_group("model"))
+            torch.cuda.synchronize()
+            out["first_collective_ms"] = (time.perf_counter() - t0) * 1e3
+            full = sh.ShardedEngineState(
+                vectors=vectors, adjacency=adj,
+                medoids=torch.tensor([medoid], dtype=torch.int32,
+                                     device=dev),
+                hyperplanes=lsh.hyperplanes,
+                bucket_ids=torch.full((2 ** 8, 40), -1, dtype=torch.int32,
+                                      device=dev),
+                bucket_stamp=torch.full((2 ** 8, 40), -1,
+                                        dtype=torch.int32, device=dev),
+                bucket_step=torch.zeros(1, dtype=torch.int32, device=dev))
+            sides = {"dist": [sh.make_sharded_search(mesh, spec, n, 8),
+                              sh.shard_state(full, mesh)],
+                     "tuple": [sh.make_sharded_search((1, 1), spec, n, 8),
+                               full]}
+            ms = {side: [] for side in sides}
+
+            def step(side, q):
+                fn, state = sides[side]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, ids, dist_ = fn(state, q)
+                torch.cuda.synchronize()
+                sides[side][1] = state
+                return (time.perf_counter() - t0) * 1e3, ids, dist_
+
+            def run():
+                launches = {side: {} for side in sides}
+                for i in range(DIST_BATCHES):
+                    q = queries[i * B: (i + 1) * B]
+                    got = {}
+                    for side in sides:
+                        (t, ids, dd), n_l = launches_of(
+                            lambda: step(side, q))
+                        ms[side].append(t)
+                        got[side] = (ids, dd)
+                        add_launches(launches[side], n_l)
+                    a, b = sides["dist"][1], sides["tuple"][1]
+                    check(torch.equal(got["dist"][0], got["tuple"][0])
+                          and torch.equal(got["dist"][1], got["tuple"][1]),
+                          f"dist batch {i}: the rank's ids or distances "
+                          f"differ from the tuple step's")
+                    for name in tables:
+                        check(torch.equal(getattr(a, name),
+                                          getattr(b, name)),
+                              f"dist batch {i}: the rank's {name} differs "
+                              f"from the tuple step's")
+                return launches
+
+            (launches, iters), _ = counted(lambda: spy_lookups(run))
+            paths["dist"], paths["dist_tuple"] = (launches["dist"],
+                                                  launches["tuple"])
+            want = expected_launches("catapult", "unfused", iters[::2])
+            check(paths["dist"] == paths["dist_tuple"] == want
+                  and iters[::2] == iters[1::2],
+                  f"dist: the rank's step launched {paths['dist']}, the "
+                  f"tuple step {paths['dist_tuple']}; their loop "
+                  f"iterations {iters} imply {want} each")
+            for side in sides:
+                med = float(np.median(ms[side]))
+                busy = device_busy_ms(lambda: step(side, queries[:B]))
+                out[side] = dict(step_ms=ms[side], step_ms_median=med,
+                                 device_busy_ms=busy,
+                                 idle_share=(1.0 - busy / med) if busy > 0
+                                 else None)
+            out["loop_iterations"] = iters[::2]
+            out["published"] = int(sides["dist"][1].bucket_step.sum())
+            del sides
+
+            # the parameters of gemma-2b at its published widths, placed
+            cfg = get_config(LM_ARCH)
+            model = M.init(cfg, torch.Generator(device=dev).manual_seed(
+                seed), dev)
+            tree = convert.stack_tree(dict(model.named_parameters()))
+            del model
+            param_sh, _ = build_shardings(cfg, mesh)
+            pspecs = tm.tree_map(lambda s: s.spec, param_sh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            placed = reshard(tree, pspecs, mesh)
+            torch.cuda.synchronize()
+            out["reshard_s"] = time.perf_counter() - t0
+            sizes = []
+
+            def same(src, dt, spec):
+                check(tuple(dt.placements) == tm.placements(spec, mesh,
+                                                            src.shape)
+                      and torch.equal(dt.full_tensor(), src),
+                      f"reshard: a {tuple(src.shape)} leaf under {spec} "
+                      f"did not come back bit-equal")
+                sizes.append(src.numel() * src.element_size())
+
+            tm.tree_map(same, tree, placed, pspecs)
+            out["reshard"] = dict(leaves=len(sizes), gb=sum(sizes) / 1e9,
+                                  dtype=str(cfg.dtype))
+            del tree, placed
+        finally:
+            dist.destroy_process_group()
+    out["launches"] = paths
+    print(f"dist: {out}", flush=True)
+    return out
+
+
 def json_default(o):
     """numpy scalars and arrays as plain JSON."""
     return o.tolist() if hasattr(o, "tolist") else str(o)
@@ -5111,6 +5284,10 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
     tiers = helpers[0].result()
     for helper in helpers[1:]:
         tiers.update(helper.result())
+    t0 = time.perf_counter()
+    dist_out = phase_dist(vectors, args.seed, dev)
+    dist_out["seconds"] = time.perf_counter() - t0
+    print(f"phase dist: {dist_out['seconds']:.1f} s", flush=True)
 
     sources = {"fused_hop_l2": ("fused_hop.cu", "fused_hop.py:160"),
                "fused_hop_pq": ("fused_hop_pq.cu", "fused_hop.py:204"),
@@ -5133,7 +5310,8 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
                   for name, n in out["launches"].items()},
                **{name if name.startswith("deployment_")
                   else f"deployment_{name}": n
-                  for name, n in deploy["launches"].items()}}
+                  for name, n in deploy["launches"].items()},
+               **dist_out["launches"]}
     line = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"src/repro_torch/kernels/csrc/{src}",
@@ -5157,7 +5335,7 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
              "serve": serve, "train": trained, "main_path": main_path,
              "filtered": filtered,
              "adapt_shift": shift, "tiers": tiers,
-             "deployment": deploy, "ptxas": ptxas,
+             "deployment": deploy, "dist": dist_out, "ptxas": ptxas,
              "kernels_line": line}, indent=1, default=str))
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

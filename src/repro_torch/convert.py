@@ -173,24 +173,9 @@ def stack_tree(named) -> dict:
     keyed the same way) -> the reference's tree: ``layers.3.attn.wq``
     becomes row 3 of the stacked leaf ``["layers"]["attn"]["wq"]``
     (``torch.stack`` on the tensors' device), every other name a path
-    of its own."""
-    rows: dict = {}
-    for name, t in named.items():
-        parts = name.split(".")
-        path = tuple(q for q in parts if not q.isdigit())
-        layer = [int(q) for q in parts if q.isdigit()]
-        if layer:
-            rows.setdefault(path, {})[layer[0]] = t.detach()
-        else:
-            rows[path] = t.detach()
-    tree: dict = {}
-    for path, v in rows.items():
-        node = tree
-        for q in path[:-1]:
-            node = node.setdefault(q, {})
-        node[path[-1]] = (torch.stack([v[i] for i in range(len(v))])
-                          if isinstance(v, dict) else v)
-    return tree
+    of its own (``models.model.tree_of``)."""
+    return lm.tree_of({k: t.detach() for k, t in named.items()},
+                      torch.stack)
 
 
 def unstack_tree(cfg, tree) -> dict:

@@ -179,11 +179,14 @@ def latest_step(path: str) -> Optional[int]:
         return None
 
 
-def restore(path: str, example_tree: Any, step: Optional[int] = None
-            ) -> tuple[Any, int]:
+def restore(path: str, example_tree: Any, step: Optional[int] = None,
+            shardings: Any = None) -> tuple[Any, int]:
     """Restore ``step`` (the latest when None) into ``example_tree``'s
     structure (its leaves are placeholders): CPU torch tensors, in the
-    saved dtypes.  The caller places them (``convert``)."""
+    saved dtypes; the caller places them (``convert``).  With
+    ``shardings`` (a tree of ``launch.mesh.NamedSharding`` of the same
+    structure, ``launch.train.build_shardings``) each leaf is re-placed
+    on the live mesh as a DTensor instead — the elastic restore path."""
     step = step if step is not None else latest_step(path)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path}")
@@ -196,4 +199,7 @@ def restore(path: str, example_tree: Any, step: Optional[int] = None
                          f"{len(manifest['leaves'])}")
     loaded = [_decode(np.load(os.path.join(d, m["file"])), m["dtype"])
               for m in manifest["leaves"]]
+    if shardings is not None:
+        loaded = [s.distribute(l) for l, s in zip(loaded,
+                                                  _flatten(shardings))]
     return _unflatten(example_tree, iter(loaded)), step

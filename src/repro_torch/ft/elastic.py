@@ -1,17 +1,22 @@
-"""Elastic scaling: the (data, model) mesh plan for a device count.
+"""Elastic scaling: re-mesh and reshard on a change of device count.
 
-A copy of ``repro/ft/elastic.py``'s plan (``MeshPlan``,
-``choose_mesh_shape``): on restart after losing (or gaining) devices the
-launcher picks the largest usable (data, model) grid, with `model`
-capped at ``max_model`` and kept as large as the divisor structure
-allows, the remaining devices on `data`, and devices that do not factor
-cleanly left idle.  Building a mesh from the plan and re-placing a
-checkpoint on it (``make_mesh_from_plan``, ``reshard``) wait for a
-multi-card mesh.
+Port of ``repro/ft/elastic.py``.  On restart after losing (or gaining)
+devices the launcher picks the largest usable (data, model) grid
+(``choose_mesh_shape``), with `model` capped at ``max_model`` and kept
+as large as the divisor structure allows, the remaining devices on
+`data`, and devices that do not factor cleanly left idle; it then builds
+the mesh over the first ``plan.used`` ranks (``make_mesh_from_plan``) and
+re-places the checkpoint on it (``reshard``, or
+``ft.checkpoint.restore(shardings=...)``) as DTensors.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import AXES, NamedSharding, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,3 +44,20 @@ def choose_mesh_shape(n_devices: int, *, max_model: int = 16,
         if (plan.used, plan.model) > (best.used, best.model):
             best = plan
     return best
+
+
+def make_mesh_from_plan(plan: MeshPlan, device="cuda"):
+    """A ``("data", "model")`` ``DeviceMesh`` over ranks ``0 …
+    plan.used - 1`` (rank ``i * model + j`` at ``(i, j)``); every rank of
+    the world must call it, and the idle ones are in no coordinate."""
+    from torch.distributed.device_mesh import DeviceMesh
+    ranks = torch.arange(plan.used).reshape(plan.data, plan.model)
+    return DeviceMesh(resolve_device(device).type, ranks,
+                      mesh_dim_names=AXES)
+
+
+def reshard(tree, pspecs, mesh):
+    """Re-place a tree of full tensors (the same on every rank) onto
+    ``mesh``: each leaf a DTensor placed by its spec in ``pspecs``."""
+    return tree_map(lambda leaf, spec: NamedSharding(mesh, spec).distribute(
+        torch.as_tensor(leaf)), tree, pspecs)

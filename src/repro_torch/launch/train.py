@@ -12,8 +12,13 @@ card by default; ``cpu`` runs the plain PyTorch path).  A fresh run
 draws the model from ``torch.Generator`` seed 0 (the reference's leaf
 distributions, not its ``jax.random`` draws); ``--resume`` continues
 from the latest checkpoint under ``--ckpt-dir``, which may have been
-written by either package.  The mesh, its shardings and the ZeRO-1
-moment layout (``build_shardings``) wait for a multi-card mesh.
+written by either package.  ``build_shardings(cfg, mesh)`` gives the
+parameters' and the ZeRO-1 moments' shardings on a ``DeviceMesh`` (the
+reference's stacked tree), which ``ft.checkpoint.restore(shardings=...)``
+and ``ft.elastic.reshard`` place as DTensors.  Training itself runs on
+one device: under a mesh with a ``data`` or ``model`` axis above 1,
+``train`` raises ``NotImplementedError`` (ROADMAP: training across
+ranks) rather than run replicated.
 """
 from __future__ import annotations
 
@@ -28,9 +33,22 @@ from repro_torch.data.pipeline import Prefetcher, TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.ft import checkpoint as ckpt
 from repro_torch.ft.straggler import StepMonitor
+from repro_torch.launch.mesh import (NamedSharding, active_mesh, axis_sizes,
+                                     tree_map)
 from repro_torch.models import model as M
 from repro_torch.models.steps import make_train_step
 from repro_torch.optim import adamw
+
+
+def build_shardings(cfg, mesh):
+    """(the parameters' shardings, the AdamW moments' ZeRO-1 shardings):
+    trees of ``NamedSharding`` in the reference's stacked layout."""
+    pspec = M.pspecs(cfg)
+    param_sh = tree_map(lambda spec: NamedSharding(mesh, spec), pspec)
+    dspec = adamw.zero1_pspecs(M.specs(cfg), pspec,
+                               data_size=axis_sizes(mesh).get("data", 1))
+    opt_sh = tree_map(lambda spec: NamedSharding(mesh, spec), dspec)
+    return param_sh, opt_sh
 
 
 def _state_tree(model, opt_state) -> dict:
@@ -61,10 +79,18 @@ def _resume(cfg, ckpt_dir: str, device):
 def train(cfg, *, steps: int, global_batch: int, seq_len: int,
           ckpt_dir: str | None = None, ckpt_every: int = 0,
           resume: bool = False, opt_cfg: adamw.AdamWConfig | None = None,
-          device="cuda", log=print):
+          device="cuda", mesh=None, log=print):
     """Train ``cfg`` for ``steps`` steps (from the latest checkpoint
     under ``ckpt_dir`` with ``resume``) on ``device``.  Returns (model,
-    opt_state, losses of the steps this call ran)."""
+    opt_state, losses of the steps this call ran).  ``mesh`` (or the
+    active ``mesh_context``) may only be a one-device mesh."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is not None and any(axis_sizes(mesh).get(a, 1) > 1
+                                for a in ("data", "model")):
+        raise NotImplementedError(
+            f"training across ranks (mesh {axis_sizes(mesh)}) is not "
+            f"ported yet (ROADMAP: training across ranks); train on one "
+            f"device")
     opt_cfg = opt_cfg or adamw.AdamWConfig(total_steps=steps)
     device = resolve_device(device)
     extras = {}

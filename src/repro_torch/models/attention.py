@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.mesh import P
 from repro_torch.models.layers import Leaves, checkpointed, rope, softcap
 
 NEG_INF = -2.0 ** 30
@@ -25,10 +26,11 @@ class Attention(Leaves):
     def __init__(self, d_model, n_heads, n_kv, head_dim, dtype, device,
                  stack=None):
         super().__init__(dtype, device, stack)
-        self.leaf("wq", (d_model, n_heads * head_dim), 1.0)
-        self.leaf("wk", (d_model, n_kv * head_dim), 1.0)
-        self.leaf("wv", (d_model, n_kv * head_dim), 1.0)
-        self.leaf("wo", (n_heads * head_dim, d_model), 1.0)
+        cols, rows = P(None, "model"), P("model", None)
+        self.leaf("wq", (d_model, n_heads * head_dim), cols, 1.0)
+        self.leaf("wk", (d_model, n_kv * head_dim), cols, 1.0)
+        self.leaf("wv", (d_model, n_kv * head_dim), cols, 1.0)
+        self.leaf("wo", (n_heads * head_dim, d_model), rows, 1.0)
 
 
 def _mask(q_pos, k_pos, window, causal):

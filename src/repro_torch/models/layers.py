@@ -13,9 +13,13 @@ SSM's ``a_log``/``d_skip``), zeros for caches.  ``fan_in`` is
 ``shape[0]`` of the reference's leaf, which for every weight of a
 stacked layer is the STACK DEPTH (``stack_decl`` prepends the layer
 axis), not ``d_in`` — a quirk kept for parity, so a block built with
-``stack=n`` draws with ``fan_in = n``.  The reference's partition specs,
-``maybe_shard`` and ``shard_residual`` have no counterpart on one card
-(they are no-ops off-mesh there).
+``stack=n`` draws with ``fan_in = n``.  Each leaf carries the
+reference's partition spec (``launch.mesh.P``) for one layer's weight;
+``pspecs_from_decl`` collects them, and ``models.model.pspecs`` gives
+the reference's stacked tree (a stacked leaf's spec gains a leading
+``None``, as ``stack_decl`` gives it).  The reference's ``maybe_shard``
+and ``shard_residual`` (GSPMD constraints of tensor-parallel training)
+have no counterpart: every layer but the MoE's experts runs replicated.
 
 Every weight is a trainable ``nn.Parameter``.  ``checkpointed`` is the
 reference's ``jax.checkpoint``: the models call it at the reference's
@@ -31,6 +35,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import P
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -39,16 +45,19 @@ class Leaves(nn.Module):
 
     ``stack`` is the depth of the reference's stacked leaf this block is
     one layer of (None: an unstacked leaf, e.g. the embedding table or
-    zamba2's shared block).  ``leaf(name, shape, scale)`` registers an
-    uninitialized parameter and records how ``init_leaves`` fills it.
+    zamba2's shared block).  ``leaf(name, shape, pspec, scale)`` registers an
+    uninitialized parameter and records how ``init_leaves`` fills it and
+    its partition spec ``pspec``.
     """
 
     def __init__(self, dtype: torch.dtype, device, stack: Optional[int]):
         super().__init__()
         self._dtype, self._device, self._stack = dtype, device, stack
         self._init: dict[str, tuple[Optional[float], int]] = {}
+        self._pspec: dict[str, P] = {}
 
-    def leaf(self, name: str, shape, scale: Optional[float] = None) -> None:
+    def leaf(self, name: str, shape, pspec: P,
+             scale: Optional[float] = None) -> None:
         shape = tuple(shape)
         if self._stack is not None:
             fan_in = self._stack               # shape[0] of (n,) + shape
@@ -57,6 +66,16 @@ class Leaves(nn.Module):
         self.register_parameter(name, nn.Parameter(
             torch.empty(shape, dtype=self._dtype, device=self._device)))
         self._init[name] = (scale, fan_in)
+        self._pspec[name] = pspec
+
+
+def pspecs_from_decl(module: nn.Module) -> dict:
+    """{parameter name: partition spec} of every ``Leaves`` parameter
+    under ``module``, each for its own (one layer's) shape."""
+    return {f"{prefix}{'.' if prefix else ''}{name}": spec
+            for prefix, sub in module.named_modules()
+            if isinstance(sub, Leaves)
+            for name, spec in sub._pspec.items()}
 
 
 def init_leaves(module: nn.Module, generator: torch.Generator) -> None:
@@ -124,8 +143,8 @@ def activation(gate, kind):
 class GatedMLP(Leaves):
     def __init__(self, d_model, d_ff, dtype, device, stack=None):
         super().__init__(dtype, device, stack)
-        self.leaf("wi", (d_model, 2 * d_ff), 1.0)
-        self.leaf("wo", (d_ff, d_model), 1.0)
+        self.leaf("wi", (d_model, 2 * d_ff), P(None, "model"), 1.0)
+        self.leaf("wo", (d_ff, d_model), P("model", None), 1.0)
 
 
 def gated_mlp(params, x, kind="swiglu"):
@@ -143,7 +162,8 @@ def padded_vocab(vocab: int) -> int:
 class Embed(Leaves):
     def __init__(self, vocab, d_model, dtype, device):
         super().__init__(dtype, device, None)
-        self.leaf("table", (padded_vocab(vocab), d_model), 1.0)
+        self.leaf("table", (padded_vocab(vocab), d_model), P("model", None),
+                  1.0)
 
 
 def embed_lookup(params, tokens):

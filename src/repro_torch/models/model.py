@@ -15,7 +15,10 @@ is a ``ModuleList`` here), ``init`` fills them from a
 ``convert.model_params_from_numpy`` fills them from the reference's own
 ``M.init`` tree.  The entry points take the model where the reference
 takes ``params``: ``forward``, ``loss_fn``, ``prefill`` and
-``decode_step``.  Caches are dicts of stacked tensors with the
+``decode_step``.  ``pspecs``/``specs`` are the reference's partition
+specs and shapes (meta tensors) of the parameter tree, ``cache_pspecs``
+its decode cache's specs; ``tree_of`` groups the port's per-layer
+names into that stacked tree.  Caches are dicts of stacked tensors with the
 reference's names and shapes (``init_cache``); ``prefill`` and
 ``decode_step`` write them in place, without autograd, and return them,
 so the reference's ``_merge_hybrid_cache`` (which reassembles scanned
@@ -31,23 +34,26 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import P
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (DTYPES, Embed, Leaves, checkpointed,
                                        embed_lookup,
-                                       init_leaves, rms_norm,
-                                       scale_embedding, unembed)
+                                       init_leaves, pspecs_from_decl,
+                                       rms_norm, scale_embedding, unembed)
 
 
 class Model(Leaves):
-    """Every parameter of one architecture, on one device."""
+    """Every parameter of one architecture, on one device (``"meta"``:
+    shapes only, nothing allocated)."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
         dtype = DTYPES[cfg.dtype]
-        device = resolve_device(device)
+        device = (torch.device("meta") if str(device) == "meta"
+                  else resolve_device(device))
         super().__init__(dtype, device, None)
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype, device)
-        self.leaf("final_norm", (cfg.d_model,))
+        self.leaf("final_norm", (cfg.d_model,), P(None))
         if cfg.family in ("dense", "vlm"):
             self.layers = tf.stack(tf.DenseBlock, cfg, cfg.n_layers, dtype,
                                    device)
@@ -68,14 +74,16 @@ class Model(Leaves):
         elif cfg.family == "encdec":
             self.enc_layers = tf.stack(tf.DenseBlock, cfg, cfg.n_enc_layers,
                                        dtype, device)
-            self.leaf("enc_norm", (cfg.d_model,))
-            self.leaf("enc_proj", (cfg.frontend_dim, cfg.d_model), 1.0)
+            self.leaf("enc_norm", (cfg.d_model,), P(None))
+            self.leaf("enc_proj", (cfg.frontend_dim, cfg.d_model),
+                      P(None, "model"), 1.0)
             self.layers = tf.stack(tf.DecBlock, cfg, cfg.n_layers, dtype,
                                    device)
         else:
             raise ValueError(cfg.family)
         if cfg.family == "vlm":
-            self.leaf("projector", (cfg.frontend_dim, cfg.d_model), 1.0)
+            self.leaf("projector", (cfg.frontend_dim, cfg.d_model),
+                      P(None, "model"), 1.0)
 
     @property
     def device(self) -> torch.device:
@@ -84,6 +92,45 @@ class Model(Leaves):
 
 def _with_ff(cfg, ff):
     return dataclasses.replace(cfg, d_ff=ff)
+
+
+def tree_of(named: dict, stack) -> dict:
+    """{port name: leaf} (``named_parameters()``, moments or specs keyed
+    the same way) -> the reference's tree: ``layers.3.attn.wq`` is row 3
+    of the stacked leaf ``["layers"]["attn"]["wq"]``, which is
+    ``stack([row 0, row 1, ...])``; every other name is a path of its
+    own, its leaf unchanged."""
+    rows: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        path = tuple(q for q in parts if not q.isdigit())
+        layer = [int(q) for q in parts if q.isdigit()]
+        if layer:
+            rows.setdefault(path, {})[layer[0]] = t
+        else:
+            rows[path] = t
+    tree: dict = {}
+    for path, v in rows.items():
+        node = tree
+        for q in path[:-1]:
+            node = node.setdefault(q, {})
+        node[path[-1]] = (stack([v[i] for i in range(len(v))])
+                          if isinstance(v, dict) else v)
+    return tree
+
+
+def specs(cfg: ArchConfig) -> dict:
+    """The reference's parameter tree as meta tensors (shapes and dtypes,
+    stacked leaves with their layer axis; nothing allocated)."""
+    return tree_of({k: p.detach() for k, p in
+                    Model(cfg, "meta").named_parameters()}, torch.stack)
+
+
+def pspecs(cfg: ArchConfig) -> dict:
+    """The reference's partition-spec tree (``M.pspecs``): a stacked
+    leaf's spec with a leading ``None`` for its layer axis."""
+    return tree_of(pspecs_from_decl(Model(cfg, "meta")),
+                   lambda rows: P(None, *rows[0]))
 
 
 def init(cfg: ArchConfig, generator: torch.Generator | None = None,
@@ -101,41 +148,64 @@ def init(cfg: ArchConfig, generator: torch.Generator | None = None,
 # caches (decode state)
 # --------------------------------------------------------------------------
 
-def cache_decl(cfg: ArchConfig, batch: int, max_len: int) -> dict:
-    """The decode cache's leaves as {name: (shape, dtype or None)}: the
-    reference's ``cache_decl`` tree without its partition specs (None:
-    the config's dtype; SSM states are f32)."""
+def cache_decl(cfg: ArchConfig, batch: int, max_len: int,
+               batch_axes=("data",), model_size: int = 1) -> dict:
+    """The decode cache's leaves as {name: (shape, dtype or None, pspec)},
+    the reference's ``cache_decl`` tree (None: the config's dtype; SSM
+    states are f32).  ``model_size`` drives divisibility-aware KV
+    sharding: kv-heads split over ``model`` when they divide, else
+    head_dim does; a batch of 1 splits the sequence over the batch axes
+    instead (distributed-KV decode)."""
+    ba = tuple(batch_axes) if batch > 1 else None
+    seq_ax = None if batch > 1 else tuple(batch_axes)
+    m = max(model_size, 1)
+    kv_ax, hd_ax = (("model", None) if cfg.n_kv_heads % m == 0 else
+                    (None, "model") if cfg.head_dim % m == 0 else
+                    (None, None))
     kvshape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    kv = P(None, ba, seq_ax, kv_ax, hd_ax)
     if cfg.family in ("dense", "vlm"):
-        return {"k": (kvshape, None), "v": (kvshape, None)}
+        return {"k": (kvshape, None, kv), "v": (kvshape, None, kv)}
     if cfg.family == "moe":
         n_moe = cfg.n_layers - cfg.first_dense_layers
         mk = (n_moe,) + kvshape[1:]
         dk = (cfg.first_dense_layers,) + kvshape[1:]
-        out = {"k": (mk, None), "v": (mk, None)}
+        out = {"k": (mk, None, kv), "v": (mk, None, kv)}
         if cfg.first_dense_layers:
-            out = {"moe": out, "dense": {"k": (dk, None), "v": (dk, None)}}
+            out = {"moe": out,
+                   "dense": {"k": (dk, None, kv), "v": (dk, None, kv)}}
         return out
     if cfg.family == "ssm":
         di = cfg.d_inner
         return {"ssm": ((cfg.n_layers, batch, di, cfg.ssm_state),
-                        torch.float32),
+                        torch.float32, P(None, ba, "model", None)),
                 "conv": ((cfg.n_layers, batch, cfg.conv_width - 1, di),
-                         None)}
+                         None, P(None, ba, None, "model"))}
     if cfg.family == "hybrid":
         g = cfg.n_layers // cfg.hybrid_attn_every
         di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
         gk = (g, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         return {"ssm": ((cfg.n_layers, batch, nh, di // nh, n),
-                        torch.float32),
+                        torch.float32, P(None, ba, "model", None, None)),
                 "conv": ((cfg.n_layers, batch, cfg.conv_width - 1,
-                          di + 2 * n), None),
-                "attn_k": (gk, None), "attn_v": (gk, None)}
+                          di + 2 * n), None, P(None, ba, None, "model")),
+                "attn_k": (gk, None, kv), "attn_v": (gk, None, kv)}
     if cfg.family == "encdec":
         xk = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {"k": (kvshape, None), "v": (kvshape, None),
-                "xk": (xk, None), "xv": (xk, None)}
+        return {"k": (kvshape, None, kv), "v": (kvshape, None, kv),
+                "xk": (xk, None, kv), "xv": (xk, None, kv)}
     raise ValueError(cfg.family)
+
+
+def cache_pspecs(cfg: ArchConfig, batch: int, max_len: int,
+                 batch_axes=("data",), model_size: int = 1) -> dict:
+    """The decode cache's partition-spec tree (the reference's
+    ``cache_pspecs``)."""
+    def specs_of(d):
+        if isinstance(d, dict):
+            return {k: specs_of(v) for k, v in d.items()}
+        return d[2]
+    return specs_of(cache_decl(cfg, batch, max_len, batch_axes, model_size))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -146,7 +216,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     def make(d):
         if isinstance(d, dict):
             return {k: make(v) for k, v in d.items()}
-        shape, dtype = d
+        shape, dtype, _ = d
         return torch.zeros(shape, dtype=dtype or DTYPES[cfg.dtype],
                            device=device)
     return make(cache_decl(cfg, batch, max_len))

@@ -1,7 +1,6 @@
-"""Mixture-of-Experts layer: top-k routing and sort-based dispatch.
+"""Mixture-of-Experts layer: top-k routing, sort-based dispatch, EP sharding.
 
-Port of ``repro/models/moe.py``'s single-device branch, which covers
-both MoE archs:
+Port of ``repro/models/moe.py``, which covers both MoE archs:
   * arctic-480b      — 128 experts, top-2, dense residual MLP in parallel
   * deepseek-moe-16b — 64 routed experts top-6 + 2 shared experts,
                        leading dense layer(s)
@@ -10,13 +9,29 @@ Dispatch is sort-based (stable argsort by expert id + capacity cutoff);
 tokens beyond an expert's capacity are dropped, and the combine weights
 are the renormalised top-k gates.  Every sort is stable and top-k breaks
 ties toward the lower expert id, as ``jnp.argsort``/``lax.top_k`` do, so
-the routing integers equal the reference's.  The reference's
-``shard_map`` expert/tensor-parallel branch waits for a multi-card mesh.
+the routing integers equal the reference's.
+
+Under ``launch.mesh.mesh_context(mesh)`` with a ``model`` axis above 1
+that divides the expert count, ``moe_layer`` takes the reference's
+``shard_map`` branch over ``torch.distributed`` (forward only): every
+rank holds the layer's full weights and the whole batch; it takes its
+block of the batch over the batch axes, routes it (capacity from the
+local token count), dispatches only its ``E / model`` experts, adds its
+tensor-parallel slices of the shared and dense MLPs (``wi`` by columns,
+``wo`` by rows, as the reference's specs cut them), and one
+``all_reduce`` over ``model`` sums the parts; the blocks are then
+gathered over the batch axes, so every rank returns the whole (B, S, D)
+output, and ``aux`` is the first block's, as the reference's ``P()``
+out-spec returns it.
 """
 from __future__ import annotations
 
+from math import prod
+from types import SimpleNamespace
+
 import torch
 
+from repro_torch.launch.mesh import P, active_mesh, axis_sizes, group_index
 from repro_torch.models.layers import GatedMLP, Leaves, activation, gated_mlp
 
 
@@ -24,9 +39,10 @@ class MoE(Leaves):
     def __init__(self, cfg, dtype, device, stack=None):
         super().__init__(dtype, device, stack)
         d, f, e = cfg.d_model, cfg.moe_d_ff, cfg.n_experts
-        self.leaf("router", (d, e), 1.0)
-        self.leaf("wi", (e, d, 2 * f), 1.0)
-        self.leaf("wo", (e, f, d), 1.0)
+        # experts over `model` (EP) and `data` (the reference's FSDP)
+        self.leaf("router", (d, e), P(None, None), 1.0)
+        self.leaf("wi", (e, d, 2 * f), P("model", None, "data"), 1.0)
+        self.leaf("wo", (e, f, d), P("model", "data", None), 1.0)
         self.shared = (GatedMLP(d, f * cfg.n_shared_experts, dtype, device,
                                 stack) if cfg.n_shared_experts else None)
         self.dense = (GatedMLP(d, cfg.d_ff, dtype, device, stack)
@@ -120,13 +136,78 @@ def _moe_local(params, xt, cfg, mlp_kind, e_lo, e_local, cap):
 
 
 def moe_layer(params, x, cfg, *, mlp_kind="swiglu"):
-    """x: (B, S, D) -> (y (B, S, D), load-balance aux loss)."""
+    """x: (B, S, D) -> (y (B, S, D), load-balance aux loss).
+
+    Single-device dispatch, or the expert/tensor-parallel branch under an
+    active mesh whose ``model`` axis (above 1) divides the experts."""
     b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    mesh = active_mesh()
+    sizes = {} if mesh is None else axis_sizes(mesh)
+    n_ep = sizes.get("model", 1)
+    if n_ep > 1 and e % n_ep == 0:
+        return _moe_parallel(params, x, cfg, mlp_kind, mesh, sizes)
     xt = x.reshape(b * s, d)
-    cap = _capacity(b * s, cfg.n_experts, cfg.top_k, cfg.capacity_factor)
-    y, aux = _moe_local(params, xt, cfg, mlp_kind, 0, cfg.n_experts, cap)
+    cap = _capacity(b * s, e, k, cfg.capacity_factor)
+    y, aux = _moe_local(params, xt, cfg, mlp_kind, 0, e, cap)
     if params.shared is not None:
         y = y + gated_mlp(params.shared, xt, mlp_kind)
     if params.dense is not None:
         y = y + gated_mlp(params.dense, xt, mlp_kind)
     return y.reshape(b, s, d), aux
+
+
+def _tp_slice(mlp, me: int, n: int):
+    """Rank ``me``'s tensor-parallel slice of a gated MLP: ``wi``'s
+    columns and ``wo``'s rows, in ``n`` contiguous blocks."""
+    ci, rw = mlp.wi.shape[1] // n, mlp.wo.shape[0] // n
+    return SimpleNamespace(wi=mlp.wi[:, me * ci:(me + 1) * ci],
+                           wo=mlp.wo[me * rw:(me + 1) * rw])
+
+
+def _gather(t, mesh, axes):
+    """``t`` concatenated along dim 0 over the mesh axes ``axes`` (the
+    first axis major), every rank receiving the whole."""
+    import torch.distributed as dist
+    for a in reversed(axes):
+        n = axis_sizes(mesh)[a]
+        if n == 1:
+            continue
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t.contiguous(), group=mesh.get_group(a))
+        t = torch.cat(parts)
+    return t
+
+
+def _moe_parallel(params, x, cfg, mlp_kind, mesh, sizes):
+    """The reference's ``shard_map`` EP+TP branch on one rank."""
+    import torch.distributed as dist
+    b, s, d = x.shape
+    e, n_ep = cfg.n_experts, sizes["model"]
+    ba = tuple(a for a in ("pod", "data") if a in sizes)
+    n_blocks = prod(sizes[a] for a in ba)
+    if b % n_blocks:
+        raise ValueError(f"a batch of {b} does not split over the "
+                         f"{n_blocks} blocks of the batch axes {ba}")
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or params.wi.requires_grad):
+        raise NotImplementedError(
+            "the MoE expert-parallel branch is forward only (ROADMAP: "
+            "training across ranks); run it under torch.no_grad()")
+    bl = b // n_blocks
+    blk = group_index(mesh, ba)
+    cap = _capacity(bl * s, e, cfg.top_k, cfg.capacity_factor)
+    me, e_loc = group_index(mesh, ("model",)), e // n_ep
+    xt = x[blk * bl:(blk + 1) * bl].reshape(bl * s, d)
+    local = SimpleNamespace(router=params.router,
+                            wi=params.wi[me * e_loc:(me + 1) * e_loc],
+                            wo=params.wo[me * e_loc:(me + 1) * e_loc])
+    y, aux = _moe_local(local, xt, cfg, mlp_kind, me * e_loc, e_loc, cap)
+    for mlp in (params.shared, params.dense):
+        if mlp is not None:
+            y = y + gated_mlp(_tp_slice(mlp, me, n_ep), xt, mlp_kind)
+    y = y.contiguous()
+    dist.all_reduce(y, group=mesh.get_group("model"))
+    y = _gather(y.reshape(bl, s, d), mesh, ba)
+    aux = _gather(aux.reshape(1), mesh, ba)[0]
+    return y, aux

@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch.mesh import P
 from repro_torch.models.layers import Leaves, checkpointed
 
 
@@ -145,13 +146,13 @@ class Mamba1(Leaves):
         super().__init__(dtype, device, stack)
         d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
         dt_rank = max(d // 16, 1)
-        self.leaf("in_proj", (d, 2 * di), 1.0)
-        self.leaf("conv_w", (di, cfg.conv_width), 1.0)
-        self.leaf("x_proj", (di, dt_rank + 2 * n), 1.0)
-        self.leaf("dt_proj", (dt_rank, di), 1.0)
-        self.leaf("a_log", (di, n))
-        self.leaf("d_skip", (di,))
-        self.leaf("out_proj", (di, d), 1.0)
+        self.leaf("in_proj", (d, 2 * di), P(None, "model"), 1.0)
+        self.leaf("conv_w", (di, cfg.conv_width), P("model", None), 1.0)
+        self.leaf("x_proj", (di, dt_rank + 2 * n), P("model", None), 1.0)
+        self.leaf("dt_proj", (dt_rank, di), P(None, "model"), 1.0)
+        self.leaf("a_log", (di, n), P("model", None))
+        self.leaf("d_skip", (di,), P("model"))
+        self.leaf("out_proj", (di, d), P("model", None), 1.0)
 
 
 def mamba1_block(params, x, cfg, ssm_state=None, conv_state=None,
@@ -190,12 +191,14 @@ class Mamba2(Leaves):
         super().__init__(dtype, device, stack)
         d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
         nh = cfg.ssm_heads
-        self.leaf("in_proj", (d, 2 * di + 2 * n + nh), 1.0)
-        self.leaf("conv_w", (di + 2 * n, cfg.conv_width), 1.0)
-        self.leaf("a_log", (nh,))
-        self.leaf("d_skip", (nh,))
-        self.leaf("norm_g", (di,))
-        self.leaf("out_proj", (di, d), 1.0)
+        self.leaf("in_proj", (d, 2 * di + 2 * n + nh), P(None, "model"),
+                  1.0)
+        self.leaf("conv_w", (di + 2 * n, cfg.conv_width), P("model", None),
+                  1.0)
+        self.leaf("a_log", (nh,), P(None))
+        self.leaf("d_skip", (nh,), P(None))
+        self.leaf("norm_g", (di,), P("model"))
+        self.leaf("out_proj", (di, d), P("model", None), 1.0)
 
 
 def mamba2_block(params, x, cfg, ssm_state=None, conv_state=None,

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.launch.mesh import P
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (Attention, attention_block,
                                           best_attention)
@@ -39,27 +40,27 @@ BIG_WINDOW = 2 ** 30
 class DenseBlock(Leaves):
     def __init__(self, cfg, dtype, device, stack=None):
         super().__init__(dtype, device, stack)
-        self.leaf("ln1", (cfg.d_model,))
+        self.leaf("ln1", (cfg.d_model,), P(None))
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.head_dim, dtype, device, stack)
-        self.leaf("ln2", (cfg.d_model,))
+        self.leaf("ln2", (cfg.d_model,), P(None))
         self.mlp = GatedMLP(cfg.d_model, cfg.d_ff, dtype, device, stack)
 
 
 class MoEBlock(Leaves):
     def __init__(self, cfg, dtype, device, stack=None):
         super().__init__(dtype, device, stack)
-        self.leaf("ln1", (cfg.d_model,))
+        self.leaf("ln1", (cfg.d_model,), P(None))
         self.attn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.head_dim, dtype, device, stack)
-        self.leaf("ln2", (cfg.d_model,))
+        self.leaf("ln2", (cfg.d_model,), P(None))
         self.moe = MoE(cfg, dtype, device, stack)
 
 
 class SSMBlock(Leaves):
     def __init__(self, cfg, dtype, device, stack=None):
         super().__init__(dtype, device, stack)
-        self.leaf("ln", (cfg.d_model,))
+        self.leaf("ln", (cfg.d_model,), P(None))
         mixer = (ssm_mod.Mamba1 if cfg.ssm_variant == "mamba1"
                  else ssm_mod.Mamba2)
         self.mixer = mixer(cfg, dtype, device, stack)
@@ -68,7 +69,7 @@ class SSMBlock(Leaves):
 class DecBlock(DenseBlock):
     def __init__(self, cfg, dtype, device, stack=None):
         super().__init__(cfg, dtype, device, stack)
-        self.leaf("ln_x", (cfg.d_model,))
+        self.leaf("ln_x", (cfg.d_model,), P(None))
         self.xattn = Attention(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                cfg.head_dim, dtype, device, stack)
 

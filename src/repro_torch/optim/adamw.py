@@ -15,8 +15,8 @@ and returned.
 The reference updates a layer-stacked leaf one layer at a time so that
 its f32 staging copies are a layer's size; the port's weights are one
 tensor a layer already, so its per-leaf ``core`` stages a layer at a
-time with no loop.  ``zero1_pspecs`` (the moments sharded over a data
-axis) waits for a multi-card mesh.
+time with no loop.  ``zero1_pspecs`` gives the moments' partition specs
+sharded over the data axis (ZeRO-1), as the reference's does.
 """
 from __future__ import annotations
 
@@ -25,6 +25,8 @@ import math
 from typing import Mapping, NamedTuple
 
 import torch
+
+from repro_torch.launch.mesh import P, tree_map
 
 
 class AdamWState(NamedTuple):
@@ -111,3 +113,29 @@ def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
         state.nu[name] = v.to(mdt)
     return params, AdamWState(state.mu, state.nu, step), \
         {"grad_norm": gnorm, "lr": lr}
+
+
+def zero1_pspecs(param_specs, param_pspecs, data_axis="data",
+                 data_size: int = 1):
+    """Optimizer-state pspecs: shard the largest replicated axis of each
+    moment over the data axis (ZeRO-1).  ``param_specs``: a tree of
+    leaves with a ``shape`` (``models.model.specs``); ``param_pspecs``
+    the same tree of ``P``."""
+
+    def one(sds, spec):
+        if spec is None:
+            spec = P()
+        flat = {a for e in spec if e is not None
+                for a in ((e,) if isinstance(e, str) else tuple(e))}
+        if data_axis in flat:      # already FSDP-sharded over data
+            return spec
+        axes = list(spec) + [None] * (len(sds.shape) - len(spec))
+        best, best_dim = -1, 0
+        for i, (ax, dim) in enumerate(zip(axes, sds.shape)):
+            if ax is None and dim % max(data_size, 1) == 0 and dim > best_dim:
+                best, best_dim = i, dim
+        if best >= 0 and data_size > 1:
+            axes[best] = data_axis
+        return P(*axes)
+
+    return tree_map(one, param_specs, param_pspecs)

@@ -25,8 +25,8 @@ same inputs and held to the reference's output where it has one:
   hypothesis range), with its validity rules;
 * ``StepMonitor``'s flags and actions equal on the same time series.
 
-The reference's ``zero1_pspecs`` (ZeRO-1 moment sharding) has no twin:
-it waits for a multi-card mesh.
+The reference's ``zero1_pspecs`` (ZeRO-1 moment sharding) is twinned
+in ``tests/test_torch_dist.py``, beside the mesh it places moments on.
 """
 from __future__ import annotations
 
