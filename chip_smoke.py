@@ -143,7 +143,15 @@ then:
    step ms, device busy ms and idle share.  Then ``reshard`` places
    gemma-2b's published-width bf16 parameters on the mesh per
    ``launch.train.build_shardings``; every ``full_tensor()`` equals its
-   source bit for bit.
+   source bit for bit.  Then training across ranks on that mesh:
+   gemma-2b at its published config (batch 4 x 64) 5 steps through
+   ``launch.train.train(mesh=...)`` (every collective of
+   ``models.parallel`` over NCCL) beside 5 one-device steps from the
+   same seed-0 init, one after the other: step 0's loss within rtol
+   1e-5, the later ones within 1e-3, no kernel launched; then the two
+   steps timed in turns on one state and one of each profiled (busy ms,
+   idle share, NCCL kernels' device ms), the collectives a step and
+   one's host µs alone, peak device memory.
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
@@ -231,6 +239,17 @@ TIER_TICK = 2
 DEPLOY_SHARDS = 4              # 250,000 rows a shard at 1M x 768
 DEPLOY_HOT = 1024              # the 1M tiered layout's hot_capacity
 DIST_BATCHES = 3               # the world of one's batches of 4,096
+# training across ranks on the world of one: gemma-2b at its published
+# config, DIST_TRAIN_STEPS steps of launch.train.train(mesh=(1, 1)) beside
+# as many of the one-device train from the same seed-0 init; step 0's
+# loss within DIST_LOSS0_RTOL (the same bf16 ops, only the f32 cross
+# entropy's order differs), the later ones within DIST_LOSS_RTOL (bf16
+# parameters updated from gradients that part by that order)
+DIST_TRAIN_STEPS = 5
+DIST_LOSS0_RTOL, DIST_LOSS_RTOL = 1e-5, 1e-3
+COLLECTIVE_REPS = 200          # one-element all_reduces timed in a row
+DIST_PAIRS = 6                 # mesh and one-device steps timed in turns
+DIST_TOP_OPS = 8               # host ops listed whose time grew the most
 # streaming ingest: a database born empty at deployment width (d=768,
 # degree 64), puts of 64 keyed rows in turns with 64-query searches.  Cut
 # from make_medrag_zipf(n=4,096) and IngestSpec()'s cutover 256 and
@@ -770,6 +789,13 @@ def device_busy_ms(fn) -> float:
 def device_activity(fn) -> tuple[float, int]:
     """``device_busy_ms`` of one call of ``fn``, and the number of device
     kernel/copy events in its trace."""
+    spans = device_events(fn)
+    return busy_ms(spans), len(spans)
+
+
+def device_events(fn) -> list:
+    """(start µs, end µs, name) of every device kernel/copy event in a
+    ``torch.profiler`` trace of one call of ``fn``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -777,14 +803,29 @@ def device_activity(fn) -> tuple[float, int]:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return [(e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def host_op_ms(fn) -> dict:
+    """{op name: host self ms} of one call of ``fn`` (``torch.profiler``,
+    CPU activity only)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_cpu_time_total / 1e3 for e in prof.key_averages()}
+
+
+def busy_ms(spans) -> float:
+    """The union of ``device_events``' intervals, in ms."""
     busy, covered = 0.0, float("-inf")
-    for start, end in spans:
+    for start, end, _ in sorted(spans):
         if end > covered:
             busy += end - max(start, covered)
             covered = end
-    return busy / 1e3, len(spans)
+    return busy / 1e3
 
 
 def idle_share(database, queries, **kw) -> dict:
@@ -5016,7 +5057,152 @@ class TierPhases:
         return False
 
 
-def phase_dist(vectors, seed: int, dev) -> dict:
+def dist_train(mesh, dev, card: str, train_ref: dict | None) -> dict:
+    """Training across ranks on the world of one: gemma-2b at its
+    published config (batch 4 x 64, the reference driver's defaults)
+    through ``launch.train.train`` on ``mesh`` (the (1, 1) mesh: every
+    collective of ``models.parallel`` runs, over NCCL) and through the
+    one-device ``train`` (``mesh`` of plain sizes 1) from the same seed-0
+    init, DIST_TRAIN_STEPS steps each, one after the other (their states
+    do not fit the card together); the losses held to each other; each
+    step timed (``StepTimer``), the collectives of the mesh run counted
+    (``parallel.COUNTS``) and kernel launches counted (none may run);
+    then, on the mesh run's state, DIST_PAIRS mesh and one-device steps
+    timed in turns, one of each profiled (device busy ms, idle share,
+    the NCCL kernels' device ms; host self ms by op, the ops that grew
+    most listed), and a lone collective's host µs; peak device memory
+    of the mesh run."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import mesh as tm
+    from repro_torch.launch import train
+    from repro_torch.models import parallel as par
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw
+    cfg = get_config(LM_ARCH)
+    kw = dict(steps=DIST_TRAIN_STEPS, global_batch=TRAIN_B,
+              seq_len=TRAIN_S, device=dev, log=lambda *a: None)
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StepTimer() as one:
+        _, _, one_losses = train.train(cfg, mesh={"data": 1, "model": 1},
+                                       **kw)
+    out["one_device_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    par.COUNTS.clear()
+    t0 = time.perf_counter()
+    with StepTimer() as ranked:
+        (model, opt_state, losses), made = counted(
+            lambda: train.train(cfg, mesh=mesh, **kw))
+    out["mesh_s"] = time.perf_counter() - t0
+    out["peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    counts = dict(par.COUNTS)
+    check(not any(made.values()), f"dist train launched {made}")
+    check(len(losses) == len(one_losses) == DIST_TRAIN_STEPS
+          and all(np.isfinite(losses)),
+          f"dist train: losses {losses} against {one_losses}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, one_losses)]
+    check(rel[0] <= DIST_LOSS0_RTOL
+          and all(r <= DIST_LOSS_RTOL for r in rel[1:]),
+          f"dist train: the mesh run's losses {losses} part from the "
+          f"one-device run's {one_losses} by {rel}")
+    plan = train.RankPlan(cfg, mesh)
+    zero1 = plan.zero1()
+    step = make_train_step(cfg, adamw.AdamWConfig(total_steps=TRAIN_STEPS),
+                           groups=plan.groups, zero1=zero1)
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_S, TRAIN_B)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in tm.local_batch(
+        pipe.batch_at(DIST_TRAIN_STEPS), mesh).items()}
+    # the two steps in turns on one state (one after the other, then
+    # the other way round): the distributed path's cost against host noise
+    sides = {"mesh": lambda: step(model, opt_state, batch),
+             "one": lambda: one_step(model, opt_state, batch)}
+    one_step = make_train_step(cfg, adamw.AdamWConfig(
+        total_steps=TRAIN_STEPS))
+    paired = {"mesh": [], "one": []}
+    for i in range(DIST_PAIRS):
+        for side in (("one", "mesh") if i % 2 == 0 else ("mesh", "one")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sides[side]()
+            torch.cuda.synchronize()
+            paired[side].append((time.perf_counter() - t0) * 1e3)
+    extra = [a - b for a, b in zip(paired["mesh"], paired["one"])]
+    # where the mesh step's extra host time goes: the host ops whose
+    # self time grew most against the one-device step's
+    host = {side: host_op_ms(fn) for side, fn in sides.items()}
+    grew = sorted(((host["mesh"].get(k, 0.0) - host["one"].get(k, 0.0), k)
+                   for k in set(host["mesh"]) | set(host["one"])),
+                  reverse=True)[:DIST_TOP_OPS]
+    one_spans = device_events(sides["one"])
+    spans = device_events(sides["mesh"])
+    busy = busy_ms(spans)
+    # a collective's host cost alone: all_reduces of one element in a
+    # row over the model group, one sync at the end
+    one_el = torch.ones(1, device=dev)
+    par.all_reduce(one_el, plan.groups.model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(COLLECTIVE_REPS):
+        par.all_reduce(one_el, plan.groups.model)
+    torch.cuda.synchronize()
+    collective_us = (time.perf_counter() - t0) / COLLECTIVE_REPS * 1e6
+    nccl = [(a, b, n) for a, b, n in spans if "nccl" in n.lower()]
+    nccl_us, nccl_n = sum(b - a for a, b, _ in nccl), len(nccl)
+    del model, opt_state, step, one_step, sides, batch
+    torch.cuda.empty_cache()
+    med = float(np.median(paired["mesh"]))
+    one_med = float(np.median(paired["one"]))
+    out.update(
+        losses=losses, one_device_losses=one_losses, loss_rel=rel,
+        grad_norms=ranked.gnorm, one_device_grad_norms=one.gnorm,
+        step_ms_all=ranked.ms, one_device_step_ms_all=one.ms,
+        paired_ms=paired, paired_extra_ms=extra,
+        host_ms=({side: sum(v.values()) for side, v in host.items()}),
+        host_ops_grew_ms={k: d for d, k in grew},
+        step_ms=med, one_device_step_ms=one_med, busy_ms=busy,
+        one_device_busy_ms=busy_ms(one_spans),
+        one_device_events=len(one_spans), device_events=len(spans),
+        idle_share=1.0 - busy / med if busy else None,
+        collectives=counts,
+        collectives_per_step={k: v / DIST_TRAIN_STEPS
+                              for k, v in counts.items()},
+        nccl_kernels=nccl_n, nccl_device_ms=nccl_us / 1e3,
+        collective_host_us=collective_us,
+        launches=made, mesh=tm.axis_sizes(mesh))
+    ref = train_ref or {}
+    print(f"dist train {LM_ARCH} (published config, batch {TRAIN_B} x "
+          f"{TRAIN_S}, {DIST_TRAIN_STEPS} steps a side) on {card}: mesh "
+          f"{out['mesh']} over {torch.distributed.get_backend()}: step "
+          f"{med:.2f} ms median of {DIST_PAIRS} in turns with the "
+          f"one-device step's {one_med:.2f} ms (the mesh's extra "
+          f"{float(np.median(extra)):.2f} ms median, above in "
+          f"{sum(x > 0 for x in extra)} of {DIST_PAIRS} pairs; the runs' "
+          f"steps 1-{DIST_TRAIN_STEPS - 1}: {np.median(ranked.ms[1:]):.2f}"
+          f" and {np.median(one.ms[1:]):.2f} ms; phase_train "
+          f"{ref.get('step_ms', float('nan')):.2f} ms, idle "
+          f"{ref.get('idle_share') or float('nan'):.3f}); host self ms "
+          f"{out['host_ms']}, grown most: "
+          f"{ {k: round(d, 2) for d, k in grew} }; profiled step "
+          f"busy {busy:.3f} ms in {len(spans)} kernels/copies (one device "
+          f"{out['one_device_busy_ms']:.3f} in {len(one_spans)}), idle share "
+          f"{out['idle_share'] or float('nan'):.3f}; collectives a step "
+          f"{out['collectives_per_step']} ({collective_us:.1f} µs of host "
+          f"each alone), {nccl_n} NCCL kernels {nccl_us / 1e3:.3f} ms in "
+          f"the profiled step; peak device "
+          f"memory {out['peak_gb']:.2f} GB (phase_train "
+          f"{ref.get('peak_gb', float('nan')):.2f} GB); losses {losses} "
+          f"against {one_losses} (rel {max(rel):.2e})", flush=True)
+    return out
+
+
+def phase_dist(vectors, seed: int, dev, card: str = "",
+               train_ref: dict | None = None) -> dict:
     """The mesh over ``torch.distributed``: a world of one rank (NCCL on
     the card, gloo on the CPU) on a (1, 1) ``DeviceMesh``.  The search at
     deployment width (the 1,000,000 x 768 table over a random regular
@@ -5029,7 +5215,10 @@ def phase_dist(vectors, seed: int, dev) -> dict:
     ms, idle share against the median).  Then ``reshard`` places
     gemma-2b's published-width bf16 parameters on the mesh per
     ``build_shardings``, and every ``full_tensor()`` must equal its
-    source bit for bit."""
+    source bit for bit.  Then training across ranks on that mesh
+    (``dist_train``: gemma-2b at its published config beside the
+    one-device run; ``train_ref`` is ``phase_train``'s output, printed
+    beside)."""
     import torch.distributed as dist
     from repro_torch import convert
     from repro_torch.configs import get_config
@@ -5169,6 +5358,10 @@ def phase_dist(vectors, seed: int, dev) -> dict:
             out["reshard"] = dict(leaves=len(sizes), gb=sum(sizes) / 1e9,
                                   dtype=str(cfg.dtype))
             del tree, placed
+            t0 = time.perf_counter()
+            out["train"] = dist_train(mesh, dev, card, train_ref)
+            out["train"]["seconds"] = time.perf_counter() - t0
+            paths["dist_train"] = out["train"]["launches"]
         finally:
             dist.destroy_process_group()
     out["launches"] = paths
@@ -5285,7 +5478,7 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
     for helper in helpers[1:]:
         tiers.update(helper.result())
     t0 = time.perf_counter()
-    dist_out = phase_dist(vectors, args.seed, dev)
+    dist_out = phase_dist(vectors, args.seed, dev, card, trained)
     dist_out["seconds"] = time.perf_counter() - t0
     print(f"phase dist: {dist_out['seconds']:.1f} s", flush=True)
 

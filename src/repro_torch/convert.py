@@ -32,6 +32,13 @@ port's state on a given device:
   by parameter name (``stack_tree``/``unstack_tree`` are the mapping,
   which the training driver's checkpoints use too), so training parity
   starts both packages from one state,
+* a training state across ranks: ``rank_slice``/``rank_full`` cut a
+  full leaf to a rank's slice under its spec and gather it back
+  (collective), ``shard_model``/``model_from_local`` hold a model's
+  slices; a gated MLP's ``wi`` goes through its rank layout on the way
+  (``gated_to_rank_layout``/``gated_from_rank_layout``), so a rank
+  holds the gate and up columns of one block, while checkpoints keep
+  the reference's ``[gate | up]``,
 * the graph needs no helper: pass ``prebuilt=(adjacency, medoid)`` to
   ``repro_torch.db.create``; a filtered graph crosses as
   ``prebuilt=(adjacency, medoid, label_entries)``, with the per-row
@@ -50,6 +57,7 @@ from repro_torch.core.lsh import LSHParams
 from repro_torch.core.lsh_apg import LshApgIndex
 from repro_torch.core.pq import PQCodebook
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import axis_sizes, local_slice, placements
 from repro_torch.models import model as lm
 from repro_torch.optim import adamw
 
@@ -270,3 +278,96 @@ def model_cache_from_numpy(cfg, tree, device="cuda") -> dict:
     return {k: (model_cache_from_numpy(cfg, v, device)
                 if isinstance(v, dict) else _tensor(v, device))
             for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------
+# a training state across ranks
+# --------------------------------------------------------------------------
+
+def gated_to_rank_layout(w: torch.Tensor, model: int) -> torch.Tensor:
+    """A gated MLP's ``wi``, ``[gate | up]`` along its last dim, in the
+    rank layout ``[gate_0 up_0 gate_1 up_1 ...]``: block ``r`` of the
+    last dim cut ``model`` ways is ``gate``'s ``r``-th block of columns
+    followed by ``up``'s, so ``gated_mlp``'s ``chunk(2)`` splits a
+    rank's block into its gate and its up columns.  (The spec
+    ``P(None, "model")`` of the reference's layout would give rank 0
+    gate columns only; GSPMD computes the right function from it, a
+    manual cut must take gate and up apart.)"""
+    f = w.shape[-1] // 2
+    return w.unflatten(-1, (2, model, f // model)).transpose(-3, -2) \
+        .flatten(-3)
+
+
+def gated_from_rank_layout(w: torch.Tensor, model: int) -> torch.Tensor:
+    """The inverse of ``gated_to_rank_layout``."""
+    f = w.shape[-1] // 2
+    return w.unflatten(-1, (model, 2, f // model)).transpose(-3, -2) \
+        .flatten(-3)
+
+
+def rank_layout(name: str, model: int):
+    """(to, from) the rank layout of the parameter (or its moments)
+    ``name`` (a port name or a stacked path joined by dots) under
+    ``model`` ranks, or None where a rank's slice is cut from the
+    reference's own layout."""
+    if not name.endswith("mlp.wi"):
+        return None
+    return (lambda w: gated_to_rank_layout(w, model),
+            lambda w: gated_from_rank_layout(w, model))
+
+
+def rank_slice(name: str, full: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's slice of the full leaf ``name`` under ``spec`` (a
+    contiguous copy; no communication)."""
+    layout = rank_layout(name, axis_sizes(mesh).get("model", 1))
+    if layout is not None:
+        full = layout[0](full)
+    return local_slice(full, spec, mesh).clone(
+        memory_format=torch.contiguous_format)
+
+
+def rank_full(name: str, local: torch.Tensor, spec, mesh,
+              shape) -> torch.Tensor:
+    """The full leaf ``name`` of ``shape`` from every rank's slice under
+    ``spec``, in the reference's layout (a collective: every rank of
+    ``mesh`` calls it; every rank gets the leaf)."""
+    from torch.distributed.tensor import DTensor
+    shape = tuple(shape)
+    stride = torch.empty(shape, device="meta").stride()
+    full = DTensor.from_local(local, mesh, placements(spec, mesh, shape),
+                              shape=shape, stride=stride).full_tensor()
+    layout = rank_layout(name, axis_sizes(mesh).get("model", 1))
+    return full if layout is None else layout[1](full).contiguous()
+
+
+def _set_params(model: "lm.Model", named: dict) -> None:
+    for name, t in named.items():
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner) if owner else model
+        setattr(module, leaf, torch.nn.Parameter(t))
+
+
+def shard_model(model: "lm.Model", specs: dict, mesh) -> "lm.Model":
+    """Keep only this rank's slice of every parameter of ``model``, in
+    place (``specs``: {port name: one layer's spec}); returns it."""
+    with torch.no_grad():
+        _set_params(model, {name: rank_slice(name, p.detach(), specs[name],
+                                             mesh)
+                            for name, p in model.named_parameters()})
+    return model
+
+
+def model_from_local(cfg, named: dict, device) -> "lm.Model":
+    """A ``Model`` whose parameters are ``named`` ({port name: this
+    rank's slice}, on any device), moved to ``device``; nothing else is
+    allocated."""
+    device = resolve_device(device)
+    model = lm.Model(cfg, "meta")
+    want = sorted(n for n, _ in model.named_parameters())
+    if sorted(named) != want:
+        raise ValueError(f"the slices name {sorted(set(named) ^ set(want))}"
+                         f" that the model does not, or the reverse")
+    _set_params(model, {name: _tensor(t, device)
+                        for name, t in named.items()})
+    model._device = device
+    return model

@@ -21,7 +21,12 @@ torch tensors, bfloat16 decoded through a torch view (no ``ml_dtypes``).
 Guarantees, as the reference's: an atomic publish (the step directory
 is written under a temporary name and renamed, then LATEST is swapped),
 and an async save (``AsyncCheckpointer`` copies the tensors to the host
-on the caller's thread, then writes in a background thread).
+on the caller's thread, then writes in a background thread).  From a
+world (``AsyncCheckpointer(path, group=...)``, training across ranks)
+every rank calls ``save_async`` with the full tree (``launch.train``
+gathers it); the group's rank 0 writes, the same files, and every rank
+waits at a barrier over the group in ``wait`` (the next save, or the end
+of the run), so no rank goes on before the step is published.
 """
 from __future__ import annotations
 
@@ -146,15 +151,27 @@ def _swap_latest(path: str, name: str) -> None:
 
 class AsyncCheckpointer:
     """One in-flight save at a time; the device-to-host copy happens on
-    the caller's thread, serialization on the worker."""
+    the caller's thread, serialization on the worker.  With ``group`` (a
+    process group every rank of which makes the same calls) only its
+    rank 0 writes, and ``wait`` ends with a barrier over the group."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, group=None):
         self.path = path
         self._thread: Optional[threading.Thread] = None
         self.last_saved: Optional[int] = None
+        self.group, self._issued = group, False
+        if group is None:
+            self.writer = True
+        else:
+            import torch.distributed as dist
+            self.writer = dist.get_rank(group) == 0
 
     def save_async(self, tree: Any, step: int) -> None:
         self.wait()
+        self._issued = True
+        if not self.writer:
+            self.last_saved = step
+            return
         leaves = [_host(l) for l in _flatten(tree)]
         host = _unflatten(tree, iter(leaves))
 
@@ -169,6 +186,10 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self.group is not None and self._issued:
+            import torch.distributed as dist
+            dist.barrier(group=self.group)
+            self._issued = False
 
 
 def latest_step(path: str) -> Optional[int]:

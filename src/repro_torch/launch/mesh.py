@@ -23,6 +23,9 @@ falls back from NCCL or from the card: a failure raises.
   would.  ``local_slice`` is a rank's block of a tensor under a spec —
   what ``distribute_tensor`` keeps on the rank, taken without any
   communication.
+* ``axis_group`` is the process group of a rank's block along some
+  axes, ``local_batch`` a rank's rows of the global batch (training
+  across ranks: ``models.parallel.groups_of``, ``launch.train``).
 
 ``torch.distributed`` is imported where it is used, so importing this
 module starts nothing.
@@ -64,15 +67,20 @@ class P(tuple):
 
 
 class NamedSharding:
-    """``spec`` on ``mesh`` (``jax.sharding.NamedSharding``)."""
+    """``spec`` on ``mesh`` (``jax.sharding.NamedSharding``).  ``layout``
+    (optional) maps the full value to the layout whose blocks the ranks
+    hold (a gated MLP's ``wi`` in training across ranks:
+    ``convert.gated_to_rank_layout``); the reference's layout when None."""
 
-    def __init__(self, mesh, spec):
-        self.mesh, self.spec = mesh, spec
+    def __init__(self, mesh, spec, layout=None):
+        self.mesh, self.spec, self.layout = mesh, spec, layout
 
     def distribute(self, tensor: torch.Tensor):
         """``tensor`` (the full value, the same on every rank) as a
-        DTensor placed by the spec (``jax.device_put``)."""
+        DTensor placed by the spec (``jax.device_put``), in ``layout``."""
         from torch.distributed.tensor import distribute_tensor
+        if self.layout is not None:
+            tensor = self.layout(tensor).contiguous()
         return distribute_tensor(tensor, self.mesh, placements(
             self.spec, self.mesh, tensor.shape))
 
@@ -237,3 +245,49 @@ def group_index(mesh, axes) -> int:
     for a in axes:
         idx = idx * sizes[a] + coord[a]
     return idx
+
+
+def axis_group(mesh, axes):
+    """The process group over ``axes`` of ``mesh`` that holds this rank
+    (its ranks ascending, which is data-major on a mesh laid out row by
+    row, as ``make_local_mesh`` and ``make_mesh_from_plan`` lay it
+    out).  One axis: the mesh's own group.  Several: one ``new_group``
+    for each block, made on every rank of the world in the same order
+    (so every rank calls this with the same axes) and cached on the
+    mesh; None on a rank outside the mesh."""
+    axes = tuple(axes)
+    if len(axes) == 1:
+        return (None if mesh.get_coordinate() is None
+                else mesh.get_group(axes[0]))
+    cache = mesh.__dict__.setdefault("_repro_axis_groups", {})
+    if axes not in cache:
+        import torch.distributed as dist
+        names = list(mesh.mesh_dim_names)
+        order = [names.index(a) for a in names if a not in axes] + \
+            [names.index(a) for a in axes]
+        n = prod(axis_sizes(mesh)[a] for a in axes)
+        me, mine = dist.get_rank(), None
+        for row in mesh.mesh.permute(order).reshape(-1, n).tolist():
+            group = dist.new_group(row)
+            if me in row:
+                mine = group
+        cache[axes] = mine
+    return cache[axes]
+
+
+def local_batch(batch: dict, mesh) -> dict:
+    """This rank's rows of a global batch (a dict of arrays or tensors
+    with the batch first): block ``i`` of the batch axes takes rows
+    ``i*b/n:(i+1)*b/n``, data-major, as the reference's ``P(ba)``
+    places them."""
+    axes = batch_axes(mesh)
+    n = prod(axis_sizes(mesh)[a] for a in axes)
+    i = group_index(mesh, axes)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"a batch of {v.shape[0]} rows does not split "
+                             f"evenly over the batch axes {axes} ({n} ways)")
+        rows = v.shape[0] // n
+        out[k] = v[i * rows: (i + 1) * rows]
+    return out

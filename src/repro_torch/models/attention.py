@@ -11,12 +11,23 @@ head-group reshape (no KV repetition).  ``scaled_dot_product_attention``
 is not used: it has no softcap, and its masking differs.  The KV-cache
 write (``write_at``) is in place and serves decoding only: the training
 path passes no cache.
+
+Under a ``parallel_context`` (training across ranks) ``attention_block``
+is Megatron's: ``wq``/``wk``/``wv`` column-parallel (a block of
+``wq``'s head-major columns is a block of whole heads), ``wo``
+row-parallel, ``copy_to_model`` on the input and ``reduce_from_model``
+on the output.  With ``n_kv % model == 0`` the rank's KV heads are the
+ones its query groups use; otherwise its ``wk``/``wv`` columns cut
+inside a head, so K and V are rebuilt whole (``gather_from_model``,
+whose backward reduce-scatters their gradient) and the rank keeps the
+one KV head its queries share (``kv_heads``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.launch.mesh import P
+from repro_torch.models import parallel as par
 from repro_torch.models.layers import Leaves, checkpointed, rope, softcap
 
 NEG_INF = -2.0 ** 30
@@ -145,10 +156,12 @@ def attention_block(params, x, positions, *, cfg, window, kv_cache=None,
     at one offset too).  Returns (out, cache).
     """
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ params.wq).reshape(b, s, h, dh)
-    k = (x @ params.wk).reshape(b, s, kv, dh)
-    v = (x @ params.wv).reshape(b, s, kv, dh)
+    dh = cfg.head_dim
+    x = par.copy_to_model(x)
+    q = x @ params.wq
+    h = q.shape[-1] // dh
+    q = q.reshape(b, s, h, dh)
+    k, v = kv_heads(cfg, x @ params.wk, x @ params.wv)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
@@ -169,4 +182,19 @@ def attention_block(params, x, positions, *, cfg, window, kv_cache=None,
         out = dense_attention(q, k, v, positions, positions, window=window,
                               causal=True, attn_softcap=cfg.attn_softcap)
     out = out.reshape(b, s, h * dh)
-    return out @ params.wo, kv_cache
+    return par.reduce_from_model(out @ params.wo), kv_cache
+
+
+def kv_heads(cfg, k, v):
+    """(B, S, cols) K and V projections -> (B, S, KV, Dh): all of them off
+    a mesh; under ``model = m`` the rank's KV heads, whole, for its
+    ``n_heads / m`` query heads."""
+    m, kv, dh = par.model_size(), cfg.n_kv_heads, cfg.head_dim
+    b, s, _ = k.shape
+    if kv % m == 0:
+        return k.reshape(b, s, kv // m, dh), v.reshape(b, s, kv // m, dh)
+    g = par.active()
+    first = g.model_rank * (cfg.n_heads // m) // (cfg.n_heads // kv)
+    k = par.gather_from_model(k).reshape(b, s, kv, dh)
+    v = par.gather_from_model(v).reshape(b, s, kv, dh)
+    return k[:, :, first: first + 1], v[:, :, first: first + 1]

@@ -18,8 +18,12 @@ reference's partition spec (``launch.mesh.P``) for one layer's weight;
 ``pspecs_from_decl`` collects them, and ``models.model.pspecs`` gives
 the reference's stacked tree (a stacked leaf's spec gains a leading
 ``None``, as ``stack_decl`` gives it).  The reference's ``maybe_shard``
-and ``shard_residual`` (GSPMD constraints of tensor-parallel training)
-have no counterpart: every layer but the MoE's experts runs replicated.
+and ``shard_residual`` (GSPMD layout constraints) have no counterpart:
+training across ranks holds each rank's slices and calls the
+collectives of ``models.parallel`` instead (the embedding table is
+vocab-parallel there: ``embed_lookup`` sums the owning rank's rows and
+``unembed`` gives the rank's vocab columns); sequence parallelism is
+left out (it saves memory only).
 
 Every weight is a trainable ``nn.Parameter``.  ``checkpointed`` is the
 reference's ``jax.checkpoint``: the models call it at the reference's
@@ -36,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch.mesh import P
+from repro_torch.models import parallel as par
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -167,16 +172,20 @@ class Embed(Leaves):
 
 
 def embed_lookup(params, tokens):
-    return params.table[tokens.long()]
+    return par.embed_lookup(params.table, tokens)
 
 
 def unembed(params, x, *, cap=None, vocab=None):
     """x @ E^T with softcap; padded vocab columns masked to -1e9 (after the
-    cap — they must stay out of every softmax/argmax/logsumexp)."""
-    logits = softcap(x @ params.table.T, cap)
-    vpad = params.table.shape[0]
-    if vocab is not None and vocab != vpad:
-        logits[..., vocab:] = -1e9
+    cap — they must stay out of every softmax/argmax/logsumexp).  Under
+    a ``parallel_context`` the table is this rank's vocab rows, and so
+    are the logits' columns: the mask lands on the padded ones among
+    them."""
+    logits = softcap(par.copy_to_model(x) @ params.table.T, cap)
+    rows = params.table.shape[0]
+    first = par.vocab_offset(rows)
+    if vocab is not None and vocab < first + rows:
+        logits[..., max(vocab - first, 0):] = -1e9
     return logits
 
 

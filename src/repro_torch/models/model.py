@@ -35,6 +35,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import P
+from repro_torch.models import parallel as par
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (DTYPES, Embed, Leaves, checkpointed,
                                        embed_lookup,
@@ -308,7 +309,11 @@ def _chunked_ce(cfg, params, h, tgt, remat=True):
     """Mean next-token cross entropy, the batch in chunks (as the
     reference chunks it, so no (T, V) f32 logits for the whole batch);
     with ``remat`` each chunk is checkpointed, so its logits are
-    recomputed in the backward pass instead of kept."""
+    recomputed in the backward pass instead of kept.  Under a
+    ``parallel_context`` the cross entropy is vocab-parallel
+    (``parallel.cross_entropy_sum``) and the rank's sum is reduced over
+    the batch axes: the global mean, whose backward gives each rank the
+    gradient of its own rows' share (the train step sums them)."""
     b, s, d = h.shape
     nb = 1
     for cand in (16, 8, 4, 2):
@@ -323,20 +328,26 @@ def _chunked_ce(cfg, params, h, tgt, remat=True):
     def chunk(hc, tc):
         lg = unembed(params.embed, hc, cap=cfg.logit_softcap,
                      vocab=cfg.vocab_size).float()
-        lse = torch.logsumexp(lg, dim=-1)
-        true = torch.gather(lg, -1, tc[..., None].long())[..., 0]
-        return torch.sum(lse - true)
+        return par.cross_entropy_sum(lg, tc)
 
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for hc, tc in zip(hb, tb):
         total = total + checkpointed(chunk, remat, hc, tc)
-    return total / (b * s)
+    groups = par.active()
+    if groups is None:
+        return total / (b * s)
+    # the rank's rows are its block of the global batch: the mean is
+    # over every rank's positions
+    return par.reduce_from(total, groups.batch) / (b * groups.batch_size * s)
 
 
 def loss_fn(cfg: ArchConfig, params, batch, *, aux_weight=0.01, remat=True):
     """Next-token cross entropy (f32 logsumexp, chunked) + MoE aux loss,
     differentiable in every parameter (``remat`` as in
-    ``forward_hidden``, and for each chunk of the cross entropy)."""
+    ``forward_hidden``, and for each chunk of the cross entropy).  Under
+    a ``parallel_context`` (training across ranks) ``params`` are the
+    rank's slices, ``batch`` its rows, and the loss is the global mean
+    (``_chunked_ce``)."""
     hidden, aux = forward_hidden(cfg, params, batch, remat=remat)
     tokens = batch["tokens"]
     if cfg.family == "vlm":   # text tail only

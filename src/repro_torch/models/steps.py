@@ -15,6 +15,20 @@ reference's ``jax.value_and_grad(M.loss_fn)``, with its remat points),
 then ``adamw.update``, which writes the parameters in place; ``metrics``
 holds ``loss``, ``grad_norm`` (0-d tensors on the model's device) and
 ``lr``.  The eval and serve steps run without autograd.
+
+Across ranks (``groups``, ``zero1``: ``launch.train``'s ``RankPlan``)
+the loss and its backward run under ``parallel_context(groups)`` (the
+models' tensor-parallel collectives, the global mean), then the
+gradients are summed over the batch axes by bucketed ``all_reduce``s
+(``parallel.all_reduce_buckets``), and ``adamw.update`` takes each
+rank's ZeRO-1 slices.  A bucketed ``all_reduce``, not a reduce-scatter
+into the ZeRO-1 slices: those slices lie along dim 0 of some leaves
+and along dim 1 of others (``wo``, the embedding table), so a
+reduce-scatter would first copy every gradient into a packed layout,
+and the backward pass holds every full gradient anyway.  Replicated
+leaves (norm gammas, ``final_norm``) need no reduction over ``model``:
+their inputs and output gradients are the same on every model rank, so
+their gradients are, bit for bit.
 """
 from __future__ import annotations
 
@@ -22,19 +36,24 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model as M
+from repro_torch.models import parallel as par
 from repro_torch.optim import adamw
 
 
 def make_train_step(cfg: ArchConfig, opt_cfg: adamw.AdamWConfig | None = None,
-                    *, remat: bool = True):
+                    *, remat: bool = True, groups: par.Groups | None = None,
+                    zero1: adamw.Zero1 | None = None):
     opt_cfg = opt_cfg or adamw.AdamWConfig()
 
     def step(model, opt_state, batch):
         params = dict(model.named_parameters())
-        loss = M.loss_fn(cfg, model, batch, remat=remat)
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with par.parallel_context(groups):
+            loss = M.loss_fn(cfg, model, batch, remat=remat)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        if groups is not None:
+            par.all_reduce_buckets(grads, groups.batch)
         _, opt_state, metrics = adamw.update(
-            opt_cfg, dict(zip(params, grads)), opt_state, params)
+            opt_cfg, dict(zip(params, grads)), opt_state, params, zero1)
         del grads
         return model, opt_state, dict(metrics, loss=loss.detach())
 

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.launch.mesh import P
+from repro_torch.models import parallel as par
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (Attention, attention_block,
                                           best_attention)
@@ -97,8 +98,12 @@ def _apply_attn_block(p, x, positions, cfg, window, cache, cache_pos,
 
 
 def _dense_ffn(cfg):
+    """The gated MLP; under a ``parallel_context`` ``wi`` column-parallel
+    (the rank's gate and up columns, ``convert.gated_to_rank_layout``)
+    and ``wo`` row-parallel."""
     def fn(p, h):
-        return gated_mlp(p.mlp, h, cfg.mlp), 0.0
+        y = gated_mlp(p.mlp, par.copy_to_model(h), cfg.mlp)
+        return par.reduce_from_model(y), 0.0
     return fn
 
 

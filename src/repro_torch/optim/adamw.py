@@ -17,6 +17,14 @@ its f32 staging copies are a layer's size; the port's weights are one
 tensor a layer already, so its per-leaf ``core`` stages a layer at a
 time with no loop.  ``zero1_pspecs`` gives the moments' partition specs
 sharded over the data axis (ZeRO-1), as the reference's does.
+
+Across ranks (``launch.train`` on a mesh) ``params`` and ``grads`` are
+the rank's slices (its gradients already summed over the batch axes)
+and ``Zero1`` says how its moments are held: each rank keeps and
+updates only its ``zero1_pspecs`` slice of each leaf, with the same
+arithmetic, then ``all_gather``s the parameter slices over ``data``;
+the clip's norm is global (each rank's squares of its slices, each
+element counted on one rank, summed over the mesh).
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ from typing import Mapping, NamedTuple
 import torch
 
 from repro_torch.launch.mesh import P, tree_map
+from repro_torch.models import parallel as par
 
 
 class AdamWState(NamedTuple):
@@ -66,27 +75,80 @@ def schedule(cfg: AdamWConfig, step: int) -> float:
     return float(cfg.lr * warm * frac)
 
 
-def init(params: Mapping[str, torch.Tensor],
-         moment_dtype=torch.float32) -> AdamWState:
-    """Zero moments shaped as ``params``, on their devices; step 0."""
+@dataclasses.dataclass(frozen=True)
+class Zero1:
+    """ZeRO-1 on a mesh, for one rank.  Per parameter name: ``dims``, the
+    dim of the rank's parameter slice that its moments split over
+    ``data`` (None: not split, the whole slice updated on every data
+    rank); ``counted``, whether this rank's moment slice counts toward
+    the gradient norm (each element on exactly one rank of the mesh).
+    ``owners``: where ZeRO-1 splits a stacked leaf's layer axis, the
+    data rank that holds and updates a layer's moments whole (the
+    others hold an empty tensor and take the layer by broadcast).
+    ``index``/``parts``: this rank's block along ``data`` and their
+    number; ``group`` the ``data`` group, ``norm_group`` the mesh's."""
+    dims: dict
+    counted: dict
+    owners: dict
+    index: int
+    parts: int
+    group: object
+    norm_group: object
+
+    def slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's ZeRO-1 block of ``t`` (a view)."""
+        d = self.dims[name]
+        if d is None:
+            return t
+        n = t.shape[d] // self.parts
+        return t.narrow(d, self.index * n, n)
+
+
+def init(params: Mapping[str, torch.Tensor], moment_dtype=torch.float32,
+         zero1: Zero1 | None = None) -> AdamWState:
+    """Zero moments shaped as ``params`` (as their ZeRO-1 slices with
+    ``zero1``), on their devices; step 0."""
     mdt = _dtype(moment_dtype)
+
+    def shape(k, p):
+        if zero1 is None:
+            return p.shape
+        if zero1.owners.get(k, zero1.index) != zero1.index:
+            return (0,)
+        return zero1.slice(k, p).shape
     return AdamWState(
-        mu={k: torch.zeros(p.shape, dtype=mdt, device=p.device)
+        mu={k: torch.zeros(shape(k, p), dtype=mdt, device=p.device)
             for k, p in params.items()},
-        nu={k: torch.zeros(p.shape, dtype=mdt, device=p.device)
+        nu={k: torch.zeros(shape(k, p), dtype=mdt, device=p.device)
             for k, p in params.items()},
         step=0)
 
 
+def global_norm(grads: Mapping[str, torch.Tensor], zero1: Zero1):
+    """The gradient norm over every rank's slices: the squares of this
+    rank's counted ZeRO-1 slices, summed over the mesh."""
+    sq = torch.zeros((), dtype=torch.float32,
+                     device=next(iter(grads.values())).device)
+    for name, g in grads.items():
+        if zero1.counted[name]:
+            sq = sq + torch.sum(torch.square(zero1.slice(name, g).float()))
+    return torch.sqrt(par.all_reduce(sq, zero1.norm_group))
+
+
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
-           state: AdamWState, params: Mapping[str, torch.Tensor]):
+           state: AdamWState, params: Mapping[str, torch.Tensor],
+           zero1: Zero1 | None = None):
     """One AdamW step.  Returns (params, new state, {"grad_norm", "lr"}):
     ``params`` written in place, the moments replaced in ``state``'s
     dicts, ``grad_norm`` a 0-d f32 tensor on the gradients' device (no
-    host sync) and ``lr`` a float."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in grads.values()))
+    host sync) and ``lr`` a float.  With ``zero1`` the rank updates its
+    ZeRO-1 slice of each leaf, then gathers the leaf over ``data``."""
+    if zero1 is None:
+        gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                               for g in grads.values()))
+    else:
+        gnorm = global_norm(grads, zero1)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     step = state.step + 1
@@ -95,11 +157,18 @@ def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
     b1c = float(1 - torch.tensor(cfg.b1, dtype=torch.float32) ** f32)
     b2c = float(1 - torch.tensor(cfg.b2, dtype=torch.float32) ** f32)
     mdt = _dtype(cfg.moment_dtype)
-    for name, p in params.items():
+    for name, whole in params.items():
+        owner = None if zero1 is None else zero1.owners.get(name)
+        if owner is not None and owner != zero1.index:
+            par.broadcast(whole, owner, zero1.group)   # another's layer
+            continue
+        # the rank's block (a view: written in place), or the whole leaf
+        p = whole if zero1 is None else zero1.slice(name, whole)
         # the reference's core, op for op (in-place where that rounds
         # the same: a * b == b * a, x += y == x + y), so the f32 staging
         # of a large leaf holds few copies at once
-        g = grads[name].float() * scale
+        g = (grads[name] if zero1 is None
+             else zero1.slice(name, grads[name])).float() * scale
         m = state.mu[name].float() * cfg.b1
         m += g * (1 - cfg.b1)
         v = state.nu[name].float() * cfg.b2
@@ -111,6 +180,11 @@ def update(cfg: AdamWConfig, grads: Mapping[str, torch.Tensor],
         del delta
         state.mu[name] = m.to(mdt)
         state.nu[name] = v.to(mdt)
+        if owner is not None:
+            par.broadcast(whole, owner, zero1.group)
+        elif zero1 is not None and zero1.dims[name] is not None:
+            whole.copy_(par.all_gather_dim(p, zero1.dims[name], zero1.group,
+                                           zero1.parts))
     return params, AdamWState(state.mu, state.nu, step), \
         {"grad_norm": gnorm, "lr": lr}
 
