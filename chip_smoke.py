@@ -151,7 +151,18 @@ then:
    1e-5, the later ones within 1e-3, no kernel launched; then the two
    steps timed in turns on one state and one of each profiled (busy ms,
    idle share, NCCL kernels' device ms), the collectives a step and
-   one's host µs alone, peak device memory.
+   one's host µs alone, peak device memory.  The other families train
+   on a world of one of their own in the fourth process, after its LM
+   twins (``phase_dist_families``, off the main process's path, which
+   the time limit binds): deepseek-moe-16b at its published widths cut
+   to 4 layers (1 dense + 3 MoE: the routing over the global batch, the
+   experts' FSDP gathers), falcon-mamba-7b at 2 and zamba2-7b at 7
+   (printed as ``reduced:``), batch 4 x 64, 5, 3 and 3 steps of
+   ``train(mesh=(1, 1))`` beside as many one-device steps from the same
+   seed-0 init: step 0's loss within rtol 1e-6, the later ones within
+   1e-4, no kernel launched; the two steps in turns on one state (median
+   ms, busy ms and idle share of one profiled step each), the
+   collectives a step by kind, peak device memory.
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
@@ -167,7 +178,8 @@ launches no ``gather_distance``, its rerank being on the host; a
 sharded or tiered search launches, shard by shard and tier by tier,
 what ``PathSpy`` records; the mesh search each virtual device's
 catapult RAM step, and a rank's step as many as the tuple step; the LM
-path and the training path launch nothing,
+path and the training paths (on one device and on a mesh) launch
+nothing,
 the RAG retrieval its Vamana build's and one catapult batch's).
 Any failed check exits non-zero.  Prints the
 card's name and power limit first, a ``{"kernels": [...]}`` line, and as
@@ -250,6 +262,19 @@ DIST_LOSS0_RTOL, DIST_LOSS_RTOL = 1e-5, 1e-3
 COLLECTIVE_REPS = 200          # one-element all_reduces timed in a row
 DIST_PAIRS = 6                 # mesh and one-device steps timed in turns
 DIST_TOP_OPS = 8               # host ops listed whose time grew the most
+# ... and the other families on their own world of one (the fourth card
+# process, after the LM twins): published widths, depth cut, batch 4 x 64,
+# launch.train.train(mesh=(1, 1)) beside as many one-device steps from the
+# same seed-0 init.  The world of one runs the one-device ops (the MoE
+# routing's and mamba2's norm's sums over groups of one, logsumexp's own
+# backward in the vocab-parallel cross entropy), so under deterministic
+# algorithms every step's loss is bit-equal on an H100; held to
+# DIST_FAMILY_LOSS0_RTOL at step 0 and DIST_FAMILY_LOSS_RTOL after
+DIST_FAMILIES = (("deepseek-moe-16b", dict(n_layers=4), 5),   # dense + 3 MoE
+                 ("falcon-mamba-7b", dict(n_layers=2), 3),
+                 ("zamba2-7b", dict(n_layers=7), 3))  # 6 mamba2, shared, 1
+DIST_FAMILY_LOSS0_RTOL, DIST_FAMILY_LOSS_RTOL = 1e-6, 1e-4
+DIST_FAMILY_PAIRS = 3          # mesh and one-device steps timed in turns
 # streaming ingest: a database born empty at deployment width (d=768,
 # degree 64), puts of 64 keyed rows in turns with 64-query searches.  Cut
 # from make_medrag_zipf(n=4,096) and IngestSpec()'s cutover 256 and
@@ -5201,6 +5226,149 @@ def dist_train(mesh, dev, card: str, train_ref: dict | None) -> dict:
     return out
 
 
+def dist_family(arch: str, cut: dict, steps: int, mesh, dev,
+                card: str) -> dict:
+    """One arch of ``phase_dist_families``: its published config with
+    ``cut``, ``steps`` steps of the one-device ``train`` (``mesh`` of
+    plain sizes 1), then of ``train(mesh=mesh)`` (one after the other:
+    two states may not fit beside the other card processes), the losses
+    held to each other (both under deterministic algorithms), the mesh
+    run's collectives counted and its peak memory read; then
+    DIST_FAMILY_PAIRS mesh and one-device steps in
+    turns on the mesh run's state, one of each profiled (busy ms, idle
+    share against the median)."""
+    import warnings
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch import mesh as tm
+    from repro_torch.launch import train
+    from repro_torch.models import parallel as par
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim import adamw
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, **cut)
+    print(f"reduced: dist train {arch} "
+          + ", ".join(f"{k} {getattr(full, k)} -> {v}"
+                      for k, v in cut.items())
+          + f" (published widths), {steps} steps a side", flush=True)
+    kw = dict(steps=steps, global_batch=TRAIN_B, seq_len=TRAIN_S,
+              device=dev, opt_cfg=adamw.AdamWConfig(total_steps=steps),
+              log=lambda *a: None)
+    torch.cuda.empty_cache()
+    # both runs under deterministic algorithms (warn_only; what it warns
+    # of is printed): the MoE combine's index_add_ and the backward of
+    # its gathers add in atomic order on the card otherwise, so a run
+    # does not repeat its own losses (two one-device deepseek-moe runs
+    # parted by 1.2e-6 and 1.5e-6 at step 0 on an H100, and by 0 under
+    # deterministic algorithms); the timed steps below run without it
+    with warnings.catch_warnings(record=True) as warned:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with StepTimer() as one:
+                _, _, one_losses = train.train(
+                    cfg, mesh={"data": 1, "model": 1}, **kw)
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            par.COUNTS.clear()
+            with StepTimer() as ranked:
+                (model, opt_state, losses), made = counted(
+                    lambda: train.train(cfg, mesh=mesh, **kw))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    deterministic_warnings = sorted({str(w.message).splitlines()[0][:200]
+                                     for w in warned})
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+    counts = {k: v / steps for k, v in par.COUNTS.items()}
+    check(not any(made.values()), f"dist train {arch} launched {made}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, one_losses)]
+    check(len(losses) == len(one_losses) == steps
+          and all(np.isfinite(losses))
+          and rel[0] <= DIST_FAMILY_LOSS0_RTOL
+          and all(r <= DIST_FAMILY_LOSS_RTOL for r in rel[1:]),
+          f"dist train {arch}: the mesh run's losses {losses} against the "
+          f"one-device run's {one_losses} (rel {rel})")
+    plan = train.RankPlan(cfg, mesh)
+    zero1 = plan.zero1()
+    mesh_step = make_train_step(cfg, adamw.AdamWConfig(total_steps=steps),
+                                groups=plan.groups, zero1=zero1)
+    one_step = make_train_step(cfg, adamw.AdamWConfig(total_steps=steps))
+    pipe = TokenPipeline(cfg.vocab_size, TRAIN_S, TRAIN_B)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in tm.local_batch(
+        pipe.batch_at(steps), mesh).items()}
+    sides = {"mesh": lambda: mesh_step(model, opt_state, batch),
+             "one": lambda: one_step(model, opt_state, batch)}
+    paired = {"mesh": [], "one": []}
+    for i in range(DIST_FAMILY_PAIRS):
+        for side in (("one", "mesh") if i % 2 == 0 else ("mesh", "one")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sides[side]()
+            torch.cuda.synchronize()
+            paired[side].append((time.perf_counter() - t0) * 1e3)
+    busy = {side: busy_ms(device_events(fn)) for side, fn in sides.items()}
+    med = {side: float(np.median(v)) for side, v in paired.items()}
+    idle = {side: (1.0 - busy[side] / med[side]) if busy[side] else None
+            for side in sides}
+    del model, opt_state, sides, mesh_step, one_step, batch
+    torch.cuda.empty_cache()
+    print(f"dist train {arch} (published widths, {cut}, batch {TRAIN_B} x "
+          f"{TRAIN_S}, {steps} steps a side) on {card}: mesh "
+          f"{tm.axis_sizes(mesh)} over {torch.distributed.get_backend()}: "
+          f"losses {losses} against {one_losses} (rel {rel}); step "
+          f"{med['mesh']:.2f} ms median of {DIST_FAMILY_PAIRS} in turns "
+          f"with the one-device step's {med['one']:.2f} ms; busy "
+          f"{busy['mesh']:.3f} / {busy['one']:.3f} ms, idle share "
+          f"{idle['mesh'] or float('nan'):.3f} / "
+          f"{idle['one'] or float('nan'):.3f}; collectives a step "
+          f"{counts}; peak device memory {peak:.2f} GB; kernel launches "
+          f"{made}; deterministic mode warned of "
+          f"{deterministic_warnings or 'nothing'}", flush=True)
+    return dict(cut=cut, steps=steps, losses=losses,
+                one_device_losses=one_losses, loss_rel=rel,
+                grad_norms=ranked.gnorm, one_device_grad_norms=one.gnorm,
+                step_ms_all=ranked.ms, one_device_step_ms_all=one.ms,
+                paired_ms=paired, step_ms=med["mesh"],
+                one_device_step_ms=med["one"], busy_ms=busy["mesh"],
+                one_device_busy_ms=busy["one"], idle_share=idle["mesh"],
+                one_device_idle_share=idle["one"],
+                collectives_per_step=counts, peak_gb=peak, launches=made,
+                deterministic_warnings=deterministic_warnings)
+
+
+def phase_dist_families(seed: int, dev, card: str = "") -> dict:
+    """Training across ranks of the families beside gemma-2b's
+    (``dist_train``), in the fourth card process after the LM twins (off
+    the main process's path, which the time limit binds): a world of one
+    of its own (NCCL on the card, gloo on the CPU) on a (1, 1)
+    ``DeviceMesh``, and ``dist_family`` for each of DIST_FAMILIES (the
+    MoE routing over the global batch with the experts' FSDP gathers,
+    the mamba1 and mamba2 blocks' tensor-parallel collectives and the
+    shared attention block's, on groups of one).  ``seed`` is unused:
+    ``train`` draws its seed-0 init."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tm
+    out, launches = {}, {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tm.init_world(dev.type, init_method=f"file://{tmp}/store", rank=0,
+                      world_size=1)
+        try:
+            mesh = tm.make_local_mesh(1, 1, dev.type)
+            for arch, cut, steps in DIST_FAMILIES:
+                out[arch] = dist_family(arch, cut, steps, mesh, dev, card)
+                launches[arch] = out[arch]["launches"]
+        finally:
+            dist.destroy_process_group()
+    out = {"dist_families": {"archs": out, "launches": launches,
+                             "seconds": time.perf_counter() - t0}}
+    print(f"phase dist families: {out['dist_families']['seconds']:.1f} s",
+          flush=True)
+    return out
+
+
 def phase_dist(vectors, seed: int, dev, card: str = "",
                train_ref: dict | None = None) -> dict:
     """The mesh over ``torch.distributed``: a world of one rank (NCCL on
@@ -5425,8 +5593,9 @@ def main() -> int:
             phase_ingest_all(dev), default=json_default))
         return 0
     if args.models:
-        Path(args.models).write_text(json.dumps(
-            phase_lm_twins(args.seed, dev), default=json_default))
+        out = phase_lm_twins(args.seed, dev)
+        out.update(phase_dist_families(args.seed, dev, card))
+        Path(args.models).write_text(json.dumps(out, default=json_default))
         return 0
     print(f"kernels built in {build_s:.1f} s into {build_dir}", flush=True)
     with tempfile.TemporaryDirectory() as tmp, \

@@ -35,10 +35,11 @@ port's state on a given device:
 * a training state across ranks: ``rank_slice``/``rank_full`` cut a
   full leaf to a rank's slice under its spec and gather it back
   (collective), ``shard_model``/``model_from_local`` hold a model's
-  slices; a gated MLP's ``wi`` goes through its rank layout on the way
-  (``gated_to_rank_layout``/``gated_from_rank_layout``), so a rank
-  holds the gate and up columns of one block, while checkpoints keep
-  the reference's ``[gate | up]``,
+  slices; a gated MLP's ``wi`` and the mamba blocks' ``in_proj`` (and
+  mamba2's ``conv_w``) go through their rank layouts on the way
+  (``rank_layout``, ``sections_to_rank_layout``), so a rank holds its
+  block of each part (gate and up, or x, z, B, C and dt), while
+  checkpoints keep the reference's layout,
 * the graph needs no helper: pass ``prebuilt=(adjacency, medoid)`` to
   ``repro_torch.db.create``; a filtered graph crosses as
   ``prebuilt=(adjacency, medoid, label_entries)``, with the per-row
@@ -284,42 +285,76 @@ def model_cache_from_numpy(cfg, tree, device="cuda") -> dict:
 # a training state across ranks
 # --------------------------------------------------------------------------
 
-def gated_to_rank_layout(w: torch.Tensor, model: int) -> torch.Tensor:
-    """A gated MLP's ``wi``, ``[gate | up]`` along its last dim, in the
-    rank layout ``[gate_0 up_0 gate_1 up_1 ...]``: block ``r`` of the
-    last dim cut ``model`` ways is ``gate``'s ``r``-th block of columns
-    followed by ``up``'s, so ``gated_mlp``'s ``chunk(2)`` splits a
-    rank's block into its gate and its up columns.  (The spec
-    ``P(None, "model")`` of the reference's layout would give rank 0
-    gate columns only; GSPMD computes the right function from it, a
-    manual cut must take gate and up apart.)"""
-    f = w.shape[-1] // 2
-    return w.unflatten(-1, (2, model, f // model)).transpose(-3, -2) \
-        .flatten(-3)
+def sections_to_rank_layout(w: torch.Tensor, sections, model: int,
+                            dim: int = -1) -> torch.Tensor:
+    """``w`` whose ``dim`` concatenates parts of ``sections`` sizes (each
+    cut ``model`` ways) in the rank layout: block ``r`` of ``dim`` cut
+    ``model`` ways holds every part's ``r``-th block, in part order.
+    (The spec ``P(None, "model")`` of the reference's layout would give
+    rank 0 of a gated MLP's ``wi``, ``[gate | up]``, gate columns only;
+    GSPMD computes the right function from it, a manual cut must take
+    the parts apart.)"""
+    parts = w.split(list(sections), dim=dim)
+    blocks = [q.chunk(model, dim=dim) for q in parts]
+    return torch.cat([b[r] for r in range(model) for b in blocks], dim=dim)
 
 
-def gated_from_rank_layout(w: torch.Tensor, model: int) -> torch.Tensor:
-    """The inverse of ``gated_to_rank_layout``."""
-    f = w.shape[-1] // 2
-    return w.unflatten(-1, (model, 2, f // model)).transpose(-3, -2) \
-        .flatten(-3)
+def sections_from_rank_layout(w: torch.Tensor, sections, model: int,
+                              dim: int = -1) -> torch.Tensor:
+    """The inverse of ``sections_to_rank_layout``."""
+    per = [n // model for n in sections]
+    ranks = [r.split(per, dim=dim) for r in w.chunk(model, dim=dim)]
+    return torch.cat([ranks[r][i] for i in range(len(sections))
+                      for r in range(model)], dim=dim)
 
 
-def rank_layout(name: str, model: int):
+def _layout_sections(name: str, cfg):
+    """(the parts' sizes, or their count where they are equal; the dim)
+    of the leaf ``name`` whose rank slice is cut from a rank layout, or
+    None: a gated MLP's ``wi`` and mamba1's ``in_proj`` (two halves of
+    the last dim: ``[gate | up]``, ``[x | z]``), mamba2's ``in_proj``
+    (``[z | x | B | C | dt]``) and its ``conv_w`` rows (``[x | B |
+    C]``).  The MoE experts' ``wi`` and the MoE layer's shared/dense
+    MLPs (``moe.shared.wi``) keep the reference's layout: the reference
+    cuts them contiguously."""
+    if name.endswith("mlp.wi"):
+        return 2, -1
+    if not name.endswith(("mixer.in_proj", "mixer.conv_w")):
+        return None
+    if cfg is None:
+        raise ValueError(f"the rank layout of {name} needs the arch's "
+                         f"config")
+    if cfg.ssm_variant == "mamba1":
+        return (2, -1) if name.endswith("in_proj") else None
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    if name.endswith("in_proj"):
+        return (di, di, n, n, nh), -1
+    return (di, n, n), -2
+
+
+def rank_layout(name: str, model: int, cfg=None):
     """(to, from) the rank layout of the parameter (or its moments)
     ``name`` (a port name or a stacked path joined by dots) under
     ``model`` ranks, or None where a rank's slice is cut from the
-    reference's own layout."""
-    if not name.endswith("mlp.wi"):
+    reference's own layout (``_layout_sections``; ``cfg`` is needed for
+    the mamba blocks' leaves)."""
+    found = _layout_sections(name, cfg)
+    if found is None:
         return None
-    return (lambda w: gated_to_rank_layout(w, model),
-            lambda w: gated_from_rank_layout(w, model))
+    parts, dim = found
+
+    def sections(w):
+        return parts if isinstance(parts, tuple) else \
+            (w.shape[dim] // parts,) * parts
+    return (lambda w: sections_to_rank_layout(w, sections(w), model, dim),
+            lambda w: sections_from_rank_layout(w, sections(w), model, dim))
 
 
-def rank_slice(name: str, full: torch.Tensor, spec, mesh) -> torch.Tensor:
+def rank_slice(name: str, full: torch.Tensor, spec, mesh,
+               cfg=None) -> torch.Tensor:
     """This rank's slice of the full leaf ``name`` under ``spec`` (a
     contiguous copy; no communication)."""
-    layout = rank_layout(name, axis_sizes(mesh).get("model", 1))
+    layout = rank_layout(name, axis_sizes(mesh).get("model", 1), cfg)
     if layout is not None:
         full = layout[0](full)
     return local_slice(full, spec, mesh).clone(
@@ -327,7 +362,7 @@ def rank_slice(name: str, full: torch.Tensor, spec, mesh) -> torch.Tensor:
 
 
 def rank_full(name: str, local: torch.Tensor, spec, mesh,
-              shape) -> torch.Tensor:
+              shape, cfg=None) -> torch.Tensor:
     """The full leaf ``name`` of ``shape`` from every rank's slice under
     ``spec``, in the reference's layout (a collective: every rank of
     ``mesh`` calls it; every rank gets the leaf)."""
@@ -336,7 +371,7 @@ def rank_full(name: str, local: torch.Tensor, spec, mesh,
     stride = torch.empty(shape, device="meta").stride()
     full = DTensor.from_local(local, mesh, placements(spec, mesh, shape),
                               shape=shape, stride=stride).full_tensor()
-    layout = rank_layout(name, axis_sizes(mesh).get("model", 1))
+    layout = rank_layout(name, axis_sizes(mesh).get("model", 1), cfg)
     return full if layout is None else layout[1](full).contiguous()
 
 
@@ -352,7 +387,7 @@ def shard_model(model: "lm.Model", specs: dict, mesh) -> "lm.Model":
     place (``specs``: {port name: one layer's spec}); returns it."""
     with torch.no_grad():
         _set_params(model, {name: rank_slice(name, p.detach(), specs[name],
-                                             mesh)
+                                             mesh, model.cfg)
                             for name, p in model.named_parameters()})
     return model
 

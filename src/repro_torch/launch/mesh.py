@@ -69,8 +69,9 @@ class P(tuple):
 class NamedSharding:
     """``spec`` on ``mesh`` (``jax.sharding.NamedSharding``).  ``layout``
     (optional) maps the full value to the layout whose blocks the ranks
-    hold (a gated MLP's ``wi`` in training across ranks:
-    ``convert.gated_to_rank_layout``); the reference's layout when None."""
+    hold (a gated MLP's ``wi``, the mamba blocks' ``in_proj`` in
+    training across ranks: ``convert.rank_layout``); the reference's
+    layout when None."""
 
     def __init__(self, mesh, spec, layout=None):
         self.mesh, self.spec, self.layout = mesh, spec, layout

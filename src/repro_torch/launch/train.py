@@ -22,17 +22,21 @@ The mesh: ``train(mesh=...)`` (a ``DeviceMesh``), else the active
 ``main``), ``make_mesh_from_plan(choose_mesh_shape(world size))`` as
 the reference does; else one device.  On a mesh the reference's GSPMD
 run computes the one-device step (its ``maybe_shard`` and
-``shard_residual`` only constrain layouts), and so does this one, up to
-reduction order (``RankPlan``): each rank holds its slices of the
-parameters per ``build_shardings`` (a gated MLP's ``wi`` through
-``convert``'s gate/up cut) and of the AdamW moments per
-``zero1_pspecs``, takes its block of the global batch, and the models
-run Megatron's collectives (``models.parallel``): data parallelism over
-the batch axes for every family but MoE, tensor parallelism over
-``model`` for the dense family.  What is not ported raises
-``NotImplementedError`` naming its ROADMAP item instead of running
-replicated: the ``moe`` family under any axis above 1, and ``ssm``,
-``hybrid``, ``vlm`` and ``encdec`` under ``model`` above 1.  Rank 0
+``shard_residual`` only constrain layouts; MoE under ``model`` above 1
+computes its ``shard_map`` branch), and so does this one, up to
+reduction order (``RankPlan``), for every family: each rank holds its
+slices of the parameters per ``build_shardings`` (a gated MLP's ``wi``
+and the mamba blocks' ``in_proj``/``conv_w`` through ``convert``'s rank
+layouts; the MoE experts' FSDP slices over ``data``) and of the AdamW
+moments per ``zero1_pspecs``, takes its block of the global batch, and
+the models run Megatron's collectives (``models.parallel``): data
+parallelism over the batch axes, tensor parallelism over ``model``
+(attention, the MLPs, the mamba blocks, the vlm/encdec projections),
+and MoE routing over the global batch (``model`` = 1) or the
+reference's expert/tensor-parallel branch with its backward (``model``
+above 1).  A mesh that an arch does not cut evenly raises
+``ValueError`` (``refuse``) instead of running replicated or padded.
+Sequence parallelism is left out (it saves memory only).  Rank 0
 prints; checkpoints hold the reference's full leaves (gathered, then
 written by rank 0) and resume under another mesh.
 """
@@ -60,12 +64,6 @@ from repro_torch.models import parallel as par
 from repro_torch.models.steps import make_train_step
 from repro_torch.optim import adamw
 
-# the ROADMAP items (queue 1) of what training across ranks still lacks
-MOE_ITEMS = ("MoE training under data parallelism; the MoE branch's "
-             "backward")
-TP_ITEM = "tensor parallelism of ssm, hybrid, vlm and encdec"
-
-
 def build_shardings(cfg, mesh):
     """(the parameters' shardings, the AdamW moments' ZeRO-1 shardings):
     trees of ``NamedSharding`` in the reference's stacked layout."""
@@ -78,30 +76,49 @@ def build_shardings(cfg, mesh):
 
 
 def refuse(cfg, sizes: dict) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP item) where
-    training ``cfg`` under a mesh of ``sizes`` is not ported: such a
-    mesh never runs replicated."""
-    batch = any(sizes.get(a, 1) > 1 for a in ("pod", "data"))
-    model = sizes.get("model", 1) > 1
-    if cfg.family == "moe" and (batch or model):
-        raise NotImplementedError(
-            f"training across ranks of the moe family (mesh {sizes}) is "
-            f"not ported yet (ROADMAP: {MOE_ITEMS})")
-    if model and cfg.family != "dense":
-        raise NotImplementedError(
-            f"training across ranks with tensor parallelism of the "
-            f"{cfg.family} family (mesh {sizes}) is not ported yet "
-            f"(ROADMAP: {TP_ITEM})")
-    m = sizes.get("model", 1)
-    if model and (cfg.n_heads % m or cfg.d_ff % m
-                  or (cfg.n_kv_heads * cfg.head_dim) % m
-                  or (cfg.n_kv_heads % m and (cfg.n_heads // cfg.n_kv_heads)
-                      % (cfg.n_heads // m))):
-        raise ValueError(
-            f"{cfg.name} does not cut {m} ways over model: its {cfg.n_heads}"
-            f" heads, {cfg.n_kv_heads} KV heads of {cfg.head_dim} and d_ff "
-            f"{cfg.d_ff} must give each rank whole query heads sharing "
-            f"whole KV heads, or one KV head cut inside")
+    """Raise ``ValueError`` where ``cfg`` does not cut evenly over a mesh
+    of ``sizes``: under ``model`` = m, whole query heads sharing whole
+    KV heads (or one KV head cut inside), and every dim that a spec
+    splits over ``model`` (the MLPs' widths, ``d_inner``, mamba2's
+    heads and state, the experts, the vlm/encdec projections' columns);
+    the experts' widths over ``data`` (their FSDP slices).  Such a mesh
+    never runs replicated or padded."""
+    m, data = sizes.get("model", 1), sizes.get("data", 1)
+    cuts = {}
+    if m > 1:
+        if cfg.family != "ssm" and (
+                cfg.n_heads % m or (cfg.n_kv_heads * cfg.head_dim) % m
+                or (cfg.n_kv_heads % m and (cfg.n_heads // cfg.n_kv_heads)
+                    % (cfg.n_heads // m))):
+            raise ValueError(
+                f"{cfg.name} does not cut {m} ways over model: its "
+                f"{cfg.n_heads} heads and {cfg.n_kv_heads} KV heads of "
+                f"{cfg.head_dim} must give each rank whole query heads "
+                f"sharing whole KV heads, or one KV head cut inside")
+        if cfg.family in ("dense", "vlm", "hybrid", "encdec") or \
+                cfg.dense_residual:
+            cuts["d_ff"] = cfg.d_ff
+        if cfg.family == "moe":
+            cuts["n_experts"] = cfg.n_experts
+            if cfg.n_shared_experts:
+                cuts["the shared experts' d_ff"] = (cfg.moe_d_ff
+                                                    * cfg.n_shared_experts)
+            if cfg.first_dense_layers:
+                cuts["first_dense_d_ff"] = cfg.first_dense_d_ff or cfg.d_ff
+        if cfg.family in ("ssm", "hybrid"):
+            cuts["d_inner"] = cfg.d_inner
+        if cfg.family == "hybrid":
+            cuts.update(ssm_heads=cfg.ssm_heads, ssm_state=cfg.ssm_state)
+        if cfg.family in ("vlm", "encdec"):
+            cuts["d_model"] = cfg.d_model
+    uneven = {k: v for k, v in cuts.items() if v % m}
+    if uneven:
+        raise ValueError(f"{cfg.name} does not cut {m} ways over model: "
+                         + ", ".join(f"{k} {v}" for k, v in uneven.items()))
+    if cfg.family == "moe" and cfg.moe_d_ff % data:
+        raise ValueError(f"{cfg.name}: the experts' moe_d_ff "
+                         f"{cfg.moe_d_ff} does not cut {data} ways over data "
+                         f"(their FSDP slices)")
 
 
 def _layer(name: str):
@@ -199,7 +216,7 @@ class RankPlan:
         them)."""
         def full(name, t, specs):
             return convert.rank_full(name, t, specs[name], self.mesh,
-                                     self.shapes[name])
+                                     self.shapes[name], self.cfg)
 
         def moment(name, t):
             if name in self.owners:
@@ -231,8 +248,9 @@ class RankPlan:
         return out
 
     def shardings(self):
-        """``build_shardings``' trees with each ``wi``'s rank layout, for
-        ``ft.checkpoint.restore(shardings=...)``."""
+        """``build_shardings``' trees with each leaf's rank layout
+        (``convert.rank_layout``), for ``ft.checkpoint.restore(
+        shardings=...)``."""
         m = self.sizes.get("model", 1)
         param_sh, opt_sh = build_shardings(self.cfg, self.mesh)
 
@@ -240,7 +258,7 @@ class RankPlan:
             if isinstance(sh_tree, dict):
                 return {k: with_layout(v, path + (k,))
                         for k, v in sh_tree.items()}
-            layout = convert.rank_layout(".".join(path), m)
+            layout = convert.rank_layout(".".join(path), m, self.cfg)
             return NamedSharding(self.mesh, sh_tree.spec,
                                  layout and layout[0])
         return with_layout(param_sh), with_layout(opt_sh)
@@ -317,7 +335,8 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int,
     (model, opt_state, losses of the steps this call ran): this rank's
     slices on a mesh, (None, None, []) on a rank the mesh leaves idle.
     ``mesh`` may also be plain axis sizes (``{"data": 2}``): the
-    refusals are checked, and only sizes of 1 train (on one device)."""
+    divisibility is checked, and only sizes of 1 train (on one
+    device)."""
     device = resolve_device(device)
     if mesh is None:
         mesh = active_mesh()

@@ -231,14 +231,15 @@ def _embed_inputs(cfg, params, batch):
     """tokens (+ stub frontend embeddings) -> (B, S, D) activations."""
     x = scale_embedding(embed_lookup(params.embed, batch["tokens"]),
                         cfg.d_model)
-    if cfg.family == "vlm":
-        patches = batch["patches"].to(x.dtype) @ params.projector
+    if cfg.family == "vlm":   # column-parallel over d_model on a mesh
+        patches = par.join_from_model(batch["patches"].to(x.dtype)
+                                      @ params.projector)
         x = torch.cat([patches, x], dim=1)
     return x
 
 
 def _encode(cfg, params, batch, dtype, remat=True):
-    enc_x = batch["frames"].to(dtype) @ params.enc_proj
+    enc_x = par.join_from_model(batch["frames"].to(dtype) @ params.enc_proj)
     enc_pos = torch.arange(enc_x.shape[1], device=enc_x.device)
     enc_out = tf.encoder_stack(cfg, params.enc_layers, enc_x, enc_pos,
                                remat)

@@ -13,16 +13,24 @@ the routing integers equal the reference's.
 
 Under ``launch.mesh.mesh_context(mesh)`` with a ``model`` axis above 1
 that divides the expert count, ``moe_layer`` takes the reference's
-``shard_map`` branch over ``torch.distributed`` (forward only): every
-rank holds the layer's full weights and the whole batch; it takes its
-block of the batch over the batch axes, routes it (capacity from the
-local token count), dispatches only its ``E / model`` experts, adds its
-tensor-parallel slices of the shared and dense MLPs (``wi`` by columns,
-``wo`` by rows, as the reference's specs cut them), and one
-``all_reduce`` over ``model`` sums the parts; the blocks are then
-gathered over the batch axes, so every rank returns the whole (B, S, D)
-output, and ``aux`` is the first block's, as the reference's ``P()``
-out-spec returns it.
+``shard_map`` branch over ``torch.distributed`` for serving (forward
+only): every rank holds the layer's full weights and the whole batch;
+it takes its block of the batch over the batch axes, routes it
+(capacity from the local token count), dispatches only its
+``E / model`` experts, adds its tensor-parallel slices of the shared
+and dense MLPs (``wi`` by columns, ``wo`` by rows, as the reference's
+specs cut them), and one ``all_reduce`` over ``model`` sums the parts;
+the blocks are then gathered over the batch axes, so every rank returns
+the whole (B, S, D) output, and ``aux`` is the first block's, as the
+reference's ``P()`` out-spec returns it.
+
+Under a ``models.parallel.parallel_context`` (training across ranks)
+every rank holds its slices and its block of the batch: the experts'
+FSDP slices over ``data`` are regathered in the layer
+(``gather_from_data``, a reduce-scatter backward); ``model`` = 1 runs
+the single-device path over the global batch (global capacity, slot
+positions and aux statistics through collectives), ``model`` above 1
+the branch with its backward (``_moe_train_branch``).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from types import SimpleNamespace
 import torch
 
 from repro_torch.launch.mesh import P, active_mesh, axis_sizes, group_index
+from repro_torch.models import parallel as par
 from repro_torch.models.layers import GatedMLP, Leaves, activation, gated_mlp
 
 
@@ -91,19 +100,38 @@ def _expert_ffn(buf, wi, wo, mlp_kind):
                         wo.to(buf.dtype))
 
 
-def _moe_local(params, xt, cfg, mlp_kind, e_lo, e_local, cap):
+def _moe_local(params, xt, cfg, mlp_kind, e_lo, e_local, cap, dp=None):
     """Dispatch/compute/combine for experts [e_lo, e_lo + e_local).
 
     Slot-compacted as in the reference: routed slots are keyed by
     (expert * cap + position); a stable argsort brings the kept slots to
     the front, so every gather and scatter is (e_local * cap, D)-sized.
     Returns (partial y, Switch load-balance aux).
+
+    ``dp``: the ``parallel.Groups`` of a rank whose tokens are its block
+    of a global batch routed as one (training under data parallelism:
+    the reference's single-device path over the whole batch).  A slot's
+    global position is its rank-local one plus the slots that lower
+    batch ranks route to its expert (the batch splits data-major, so the
+    reference's stable sort puts their tokens first; one ``all_gather``
+    of the per-expert counts); ``keep`` tests it against the global
+    ``cap``; the rank fills and computes only its own kept slots (the
+    expert FFN is row-independent, so no all-to-all).  The aux takes the
+    global means: the counts kept per expert are min(total, cap), and
+    the probabilities' sum goes through ``reduce_from`` over the batch
+    axes (each rank's backward its own tokens' share).
     """
     e, k = cfg.n_experts, cfg.top_k
     t, d = xt.shape
     flat_e, pos, keep, tok_idx, gate_vals, probs = _route(
         xt, params.router, e, k, cap, expert_lo=e_lo,
         expert_hi=e_lo + e_local)
+    if dp is not None:
+        every = par.gather_stack(torch.bincount(flat_e, minlength=e),
+                                 dp.batch, dp.batch_size)      # (n, E)
+        ahead = every[:dp.batch_rank].sum(dim=0)
+        keep = ((pos + ahead[flat_e] < cap) & (flat_e >= e_lo)
+                & (flat_e < e_lo + e_local))
     n_slots = e_local * cap
     big = 2 ** 30
     keys = torch.where(keep, flat_e * cap + pos,
@@ -127,10 +155,17 @@ def _moe_local(params, xt, cfg, mlp_kind, e_lo, e_local, cap):
     y.index_add_(0, torch.where(valid, src_tok, torch.full_like(src_tok, t)),
                  contrib)
     # Switch-style load-balance aux over the global routing statistics
-    me = probs.mean(dim=0)
-    ce = torch.zeros(e, dtype=torch.float32, device=xt.device)
-    ce.index_add_(0, flat_e, (pos < cap).float())
-    ce = ce / t
+    if dp is None:
+        # the mean as a sum over t (jnp.mean's division), as the data-
+        # parallel path takes it: a world of one runs the same ops
+        me = probs.sum(dim=0) / t
+        ce = torch.zeros(e, dtype=torch.float32, device=xt.device)
+        ce.index_add_(0, flat_e, (pos < cap).float())
+        ce = ce / t
+    else:
+        t_all = t * dp.batch_size
+        me = par.reduce_from(probs.sum(dim=0), dp.batch) / t_all
+        ce = torch.clamp(every.sum(dim=0), max=cap).float() / t_all
     aux = e * torch.sum(me * ce) / k
     return y[:t], aux
 
@@ -139,9 +174,18 @@ def moe_layer(params, x, cfg, *, mlp_kind="swiglu"):
     """x: (B, S, D) -> (y (B, S, D), load-balance aux loss).
 
     Single-device dispatch, or the expert/tensor-parallel branch under an
-    active mesh whose ``model`` axis (above 1) divides the experts."""
+    active mesh whose ``model`` axis (above 1) divides the experts.
+    Under a ``parallel_context`` (training across ranks) ``x`` is the
+    rank's block of the batch and the experts' ``wi``/``wo`` are its
+    FSDP slices over ``data`` (regathered here): ``model`` above 1 takes
+    the branch (``_moe_train_branch``), else the single-device path runs
+    over the global batch (``_moe_local``'s ``dp``), its routing
+    collectives running on groups of one too."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
+    groups = par.active()
+    if groups is not None:
+        return _moe_train(params, x, cfg, mlp_kind, groups)
     mesh = active_mesh()
     sizes = {} if mesh is None else axis_sizes(mesh)
     n_ep = sizes.get("model", 1)
@@ -155,6 +199,65 @@ def moe_layer(params, x, cfg, *, mlp_kind="swiglu"):
     if params.dense is not None:
         y = y + gated_mlp(params.dense, xt, mlp_kind)
     return y.reshape(b, s, d), aux
+
+
+def _moe_train(params, x, cfg, mlp_kind, groups):
+    """The layer on one rank of a training mesh (``moe_layer``)."""
+    b, s, d = x.shape
+    e, k, m = cfg.n_experts, cfg.top_k, groups.model_size
+    if e % m:
+        raise ValueError(
+            f"{cfg.name}: its {e} experts do not cut {m} ways over model "
+            f"(the reference runs such a mesh through GSPMD's "
+            f"single-device path, which is not ported)")
+    experts = SimpleNamespace(router=params.router,
+                              wi=par.gather_from_data(params.wi, -1),
+                              wo=par.gather_from_data(params.wo, 1))
+    if m == 1:
+        xt = x.reshape(b * s, d)
+        cap = _capacity(b * s * groups.batch_size, e, k,
+                        cfg.capacity_factor)
+        y, aux = _moe_local(experts, xt, cfg, mlp_kind, 0, e, cap,
+                            dp=groups)
+        for mlp in (params.shared, params.dense):
+            if mlp is not None:
+                y = y + gated_mlp(mlp, xt, mlp_kind)
+        return y.reshape(b, s, d), aux
+    return _moe_train_branch(experts, params, x, cfg, mlp_kind, groups)
+
+
+def _moe_train_branch(experts, params, x, cfg, mlp_kind, groups):
+    """The reference's ``shard_map`` EP+TP branch with its backward, on
+    a rank of a training mesh with ``model`` above 1: ``x`` is its block
+    of the batch (routed with the block's own capacity, as the
+    reference's ``t_loc``), the rank runs its ``E / model`` experts and
+    the contiguous column blocks of the shared/dense MLPs that it holds
+    (the reference's gate/up cut, ROADMAP queue 3), and
+    ``reduce_from_model`` behind ``copy_to_model`` (on ``x`` and the
+    router, which the rank uses for its own experts' gates only) sums
+    the parts.  The aux is the reference's ``P()`` out-spec's: block 0's
+    value in every rank's loss (a ``broadcast`` over the batch axes), and
+    in the backward pass the mean of the blocks' aux gradients, taken on
+    model rank 0 alone (the copies' all-reduces would count it ``model``
+    times)."""
+    b, s, d = x.shape
+    e, m = cfg.n_experts, groups.model_size
+    e_loc = e // m
+    me = groups.model_rank
+    cap = _capacity(b * s, e, cfg.top_k, cfg.capacity_factor)
+    xt = par.copy_to_model(x.reshape(b * s, d))
+    local = SimpleNamespace(router=par.copy_to_model(experts.router),
+                            wi=experts.wi, wo=experts.wo)
+    y, aux = _moe_local(local, xt, cfg, mlp_kind, me * e_loc, e_loc, cap)
+    for mlp in (params.shared, params.dense):
+        if mlp is not None:
+            y = y + gated_mlp(mlp, xt, mlp_kind)
+    y = par.reduce_from_model(y)
+    with torch.no_grad():
+        first = par.broadcast(aux.detach().clone(), 0, groups.batch)
+    share = (aux - aux.detach()) * (1.0 / groups.batch_size if me == 0
+                                    else 0.0)
+    return y.reshape(b, s, d), first + share
 
 
 def _tp_slice(mlp, me: int, n: int):
@@ -180,7 +283,10 @@ def _gather(t, mesh, axes):
 
 
 def _moe_parallel(params, x, cfg, mlp_kind, mesh, sizes):
-    """The reference's ``shard_map`` EP+TP branch on one rank."""
+    """The reference's ``shard_map`` EP+TP branch on one rank, for
+    serving (forward only): every rank holds the layer's full weights
+    and the whole batch; it takes its block of the batch, and the blocks
+    of the output are gathered over the batch axes."""
     import torch.distributed as dist
     b, s, d = x.shape
     e, n_ep = cfg.n_experts, sizes["model"]
@@ -192,8 +298,9 @@ def _moe_parallel(params, x, cfg, mlp_kind, mesh, sizes):
     if torch.is_grad_enabled() and (x.requires_grad
                                     or params.wi.requires_grad):
         raise NotImplementedError(
-            "the MoE expert-parallel branch is forward only (ROADMAP: "
-            "training across ranks); run it under torch.no_grad()")
+            "the MoE expert-parallel branch under mesh_context is forward "
+            "only (training across ranks runs it under parallel_context); "
+            "run it under torch.no_grad()")
     bl = b // n_blocks
     blk = group_index(mesh, ba)
     cap = _capacity(bl * s, e, cfg.top_k, cfg.capacity_factor)

@@ -3,30 +3,42 @@
 The reference trains under any mesh through GSPMD: ``build_shardings``
 places the parameters, ``maybe_shard``/``shard_residual`` constrain
 layouts, and XLA inserts the collectives, so the mesh step computes the
-one-device loss, gradients and update.  Here each rank holds its slices
+one-device loss, gradients and update (and, for MoE under ``model``
+above 1, its ``shard_map`` branch's).  Here each rank holds its slices
 (``launch.train``'s ``RankPlan``) and the models call the collectives
 themselves, Megatron-style, while a ``parallel_context(groups)`` is
 active:
 
 * ``copy_to_model``: identity forward, ``all_reduce`` over ``model``
-  backward (a column-parallel layer's input);
+  backward (a column-parallel layer's input, a replicated leaf that a
+  rank uses only in part, as mamba2's ``a_log``);
 * ``reduce_from_model``: ``all_reduce`` forward, identity backward (a
   row-parallel layer's output); ``reduce_from`` is the same over any
-  group (the loss's local sums over the batch axes);
+  group (the loss's local sums over the batch axes, MoE routing
+  statistics); ``reduce_from_model`` then ``copy_to_model`` reduces both
+  ways (mamba1's ``x_proj`` partial, mamba2's sum of squares);
 * ``gather_from_model``: ``all_gather`` of the last dim forward, a
-  reduce-scatter (the sum, then this rank's block) backward (K/V cut
-  inside a head, gemma-2b's single KV head under ``model = 2``);
+  reduce-scatter (the sum, then this rank's block) backward, for a
+  value that rank-local work consumes (K/V cut inside a head, mamba2's
+  ``B``/``C``); ``gather_from_data`` is the same over ``data`` along
+  any dim (the MoE experts' FSDP slices, regathered in the layer);
+* ``join_from_model``: ``all_gather`` of the last dim forward, this
+  rank's block of the gradient backward, for a column-parallel output
+  that joins the replicated stream (the vlm ``projector``, the encdec
+  ``enc_proj``), whose gradient every rank holds whole;
 * ``embed_lookup`` and ``cross_entropy_sum``: the vocab-parallel lookup
   (masked local rows, then ``reduce_from_model``) and cross entropy (an
   ``all_reduce`` MAX of the logit max, an ``all_reduce`` SUM of the
-  exp-sums, the true logit from the rank that owns it), in f32.
+  exp-sums, whose backward is ``logsumexp``'s own on the rank's
+  columns, and the true logit from the rank that owns it), in f32.
 
 Each pair is an ``autograd.Function`` whose backward is the forward's
 adjoint; on a group of one rank every collective still runs (and is an
 identity).  Without an active context every function here is the
 one-device code, op for op.  ``all_reduce_buckets`` sums the gradients
-over the batch axes in place.  ``COUNTS`` counts every collective called
-(``chip_smoke.py`` reads it).
+over the batch axes in place (all but the FSDP leaves, whose
+``gather_from_data`` backward already reduced them over ``data``).
+``COUNTS`` counts every collective called (``chip_smoke.py`` reads it).
 
 ``torch.distributed`` is imported where it is used, so importing this
 module starts nothing.
@@ -48,7 +60,8 @@ BUCKET_BYTES = 64 << 20
 class Groups(NamedTuple):
     """A rank's process groups in a training mesh, with its index and
     the group's size along each: ``model``; the batch axes (``pod``,
-    ``data``); ``data`` alone (ZeRO-1); every rank of the mesh."""
+    ``data``); ``data`` alone (ZeRO-1, the experts' FSDP); every rank of
+    the mesh; ``pod`` alone (None without a ``pod`` axis)."""
     model: object
     model_size: int
     model_rank: int
@@ -59,6 +72,7 @@ class Groups(NamedTuple):
     data_size: int
     data_rank: int
     mesh: object
+    pod: object = None
 
 
 # a process-wide setting, not a context variable: on the card the
@@ -97,12 +111,13 @@ def groups_of(mesh) -> Groups | None:
     ba = tm.batch_axes(mesh)
     made = [tm.axis_group(mesh, axes)
             for axes in (("model",), ba, ("data",), tuple(sizes))]
+    pod = tm.axis_group(mesh, ("pod",)) if "pod" in sizes else None
     if mesh.get_coordinate() is None:
         return None
     return Groups(made[0], sizes["model"], tm.group_index(mesh, ("model",)),
                   made[1], prod(sizes[a] for a in ba),
                   tm.group_index(mesh, ba), made[2], sizes["data"],
-                  tm.group_index(mesh, ("data",)), made[3])
+                  tm.group_index(mesh, ("data",)), made[3], pod)
 
 
 def _dist():
@@ -130,11 +145,11 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
 def all_gather_dim(t: torch.Tensor, dim: int, group,
                    size: int) -> torch.Tensor:
     """The ranks' ``t`` concatenated along ``dim``, in rank order."""
-    return torch.cat(_gather(t, group, size).unbind(0), dim=dim)
+    return torch.cat(gather_stack(t, group, size).unbind(0), dim=dim)
 
 
-def _gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
-    """(size, *t.shape): rank r's ``t`` at index r."""
+def gather_stack(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """(size, *t.shape): rank r's ``t`` at index r (no autograd)."""
     COUNTS["all_gather"] += 1
     out = torch.empty((size * t.shape[0],) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
@@ -142,12 +157,14 @@ def _gather(t: torch.Tensor, group, size: int) -> torch.Tensor:
     return out.view((size,) + tuple(t.shape))
 
 
-def reduce_scatter_last(t: torch.Tensor, group, size: int) -> torch.Tensor:
-    """The sum of the ranks' ``t``, and of it this rank's block of the
-    last dim (the adjoint of ``all_gather_dim`` along it)."""
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group,
+                       size: int) -> torch.Tensor:
+    """The sum of the ranks' ``t``, and of it this rank's block of
+    ``dim`` (the adjoint of ``all_gather_dim`` along it)."""
     COUNTS["reduce_scatter"] += 1
-    c = t.shape[-1] // size
-    blocks = t.reshape(*t.shape[:-1], size, c).movedim(-2, 0).contiguous()
+    dim = dim % t.ndim
+    c = t.shape[dim] // size
+    blocks = t.unflatten(dim, (size, c)).movedim(dim, 0).contiguous()
     out = torch.empty(blocks.shape[1:], dtype=t.dtype, device=t.device)
     _dist().reduce_scatter_tensor(out, blocks.flatten(0, 1), group=group)
     return out
@@ -176,13 +193,26 @@ class _Reduce(torch.autograd.Function):
 
 class _Gather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, size):
-        ctx.group, ctx.size = group, size
+    def forward(ctx, x, dim, group, size):
+        ctx.dim, ctx.group, ctx.size = dim, group, size
+        return all_gather_dim(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_dim(g, ctx.dim, ctx.group, ctx.size), None,
+                None, None)
+
+
+class _Join(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        ctx.size, ctx.rank = size, rank
         return all_gather_dim(x, -1, group, size)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter_last(g, ctx.group, ctx.size), None, None
+        return (g.chunk(ctx.size, dim=-1)[ctx.rank].contiguous(), None, None,
+                None)
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
@@ -202,7 +232,23 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
 
 def gather_from_model(x: torch.Tensor) -> torch.Tensor:
     g = active()
-    return x if g is None else _Gather.apply(x, g.model, g.model_size)
+    return x if g is None else _Gather.apply(x, -1, g.model, g.model_size)
+
+
+def gather_from_data(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' FSDP slices along ``dim``, concatenated over ``data``
+    (a reduce-scatter into this rank's slice backward)."""
+    g = active()
+    return x if g is None else _Gather.apply(x, dim, g.data, g.data_size)
+
+
+def join_from_model(x: torch.Tensor) -> torch.Tensor:
+    """A column-parallel output joined into the replicated stream: the
+    ranks' blocks of the last dim concatenated; backward, this rank's
+    block of the (replicated) gradient."""
+    g = active()
+    return x if g is None else _Join.apply(x, g.model, g.model_size,
+                                           g.model_rank)
 
 
 def model_size() -> int:
@@ -242,16 +288,37 @@ def cross_entropy_sum(logits: torch.Tensor,
         true = torch.gather(logits, -1, targets[..., None].long())[..., 0]
         return torch.sum(lse - true)
     cols = logits.shape[-1]
-    with torch.no_grad():
-        top = all_reduce(logits.amax(dim=-1), g.model, op="max")
-    sums = reduce_from_model(torch.exp(logits - top[..., None]).sum(dim=-1))
+    lse = _LogSumExp.apply(logits, g.model)
     local = targets.long() - vocab_offset(cols)
     mine = (local >= 0) & (local < cols)
     true = torch.gather(logits, -1, local.clamp(0, cols - 1)[..., None])
     true = torch.where(mine, true[..., 0], torch.zeros(
         (), dtype=logits.dtype, device=logits.device))
     true = reduce_from_model(true)
-    return torch.sum(torch.log(sums) + top - true)
+    return torch.sum(lse - true)
+
+
+class _LogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` of the last dim over the vocab columns of every
+    rank of ``group``: forward ``torch.logsumexp``'s own ops (the max,
+    the sum of ``exp(x - max)``, its log plus the max), the max and the
+    sum each ``all_reduce``d; backward its adjoint on the rank's columns,
+    ``g * exp(x - lse)`` (no collective), as ``logsumexp``'s backward
+    computes it, so a group of one repeats the one-device gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, group):
+        top = all_reduce(logits.amax(dim=-1), group, op="max")
+        sums = all_reduce(torch.exp(logits - top[..., None]).sum(dim=-1),
+                          group)
+        lse = torch.log(sums) + top
+        ctx.save_for_backward(logits, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse = ctx.saved_tensors
+        return g[..., None] * torch.exp(logits - lse[..., None]), None
 
 
 def all_reduce_buckets(tensors, group, cap: int = BUCKET_BYTES) -> None:

@@ -18,6 +18,23 @@ tests bound (``tests/test_torch_model_parts.py``).
 Mamba-2 uses the same recurrence with a scalar A per head and B/C
 shared across heads.  Decode is the single-step update through the same
 code (S=1, chunk=1).
+
+Under a ``parallel_context`` (training across ranks) both blocks are
+tensor-parallel over ``model`` as the reference's specs cut them: the
+input through ``copy_to_model``, ``in_proj`` column-parallel in its rank
+layout (``convert.rank_layout``: rank r holds its blocks of each part,
+``[x_r | z_r]`` for mamba1, ``[z_r | x_r | B_r | C_r | dt_r]`` for
+mamba2, and mamba2's ``conv_w`` rows follow ``[x_r | B_r | C_r]``), the
+depthwise conv, the scan and ``d_skip`` on the rank's ``d_inner``
+channels (mamba2: its whole heads), ``out_proj`` row-parallel
+(``reduce_from_model``).  Mamba1's ``x_proj`` is row-parallel, and its
+(dt, B, C) partial is reduced both ways (every rank's channels consume
+it).  Mamba2 gathers ``B``/``C`` over ``model`` (``gather_from_model``:
+rank-local heads consume them), takes its heads of the replicated
+``a_log``/``d_skip`` behind ``copy_to_model`` (their gradients summed
+over ``model``, so the leaves stay equal on every rank), and its gated
+RMSNorm's sum of squares over the full ``d_inner`` is reduced both
+ways.
 """
 from __future__ import annotations
 
@@ -25,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.launch.mesh import P
+from repro_torch.models import parallel as par
 from repro_torch.models.layers import Leaves, checkpointed
 
 
@@ -162,13 +180,15 @@ def mamba1_block(params, x, cfg, ssm_state=None, conv_state=None,
     Returns (y, new_ssm_state, new_conv_state).
     """
     bsz, s, d = x.shape
-    di, n = cfg.d_inner, cfg.ssm_state
+    n = cfg.ssm_state
     dt_rank = max(d // 16, 1)
-    xz = x @ params.in_proj
+    xz = par.copy_to_model(x) @ params.in_proj
     xi, z = xz.chunk(2, dim=-1)                         # (B, S, Di)
+    di = xi.shape[-1]                                   # the rank's channels
     xi, new_conv = causal_conv1d(xi, params.conv_w, conv_state)
     xi = F.silu(xi)
-    proj = xi @ params.x_proj.to(xi.dtype)              # (B, S, dt_rank+2N)
+    proj = par.copy_to_model(par.reduce_from_model(
+        xi @ params.x_proj.to(xi.dtype)))               # (B, S, dt_rank+2N)
     dt, bmat, cmat = proj.split([dt_rank, n, n], dim=-1)
     dt = F.softplus(dt @ params.dt_proj)                # (B, S, Di)
     a = -torch.exp(params.a_log.float())                # (Di, N)
@@ -179,7 +199,7 @@ def mamba1_block(params, x, cfg, ssm_state=None, conv_state=None,
                                "mamba1", remat)
     y = y.to(x.dtype) + params.d_skip * xi
     y = y * F.silu(z)
-    return y @ params.out_proj, h_last, new_conv
+    return par.reduce_from_model(y @ params.out_proj), h_last, new_conv
 
 
 # --------------------------------------------------------------------------
@@ -205,26 +225,38 @@ def mamba2_block(params, x, cfg, ssm_state=None, conv_state=None,
                  remat=True):
     """x: (B, S, D).  ssm_state: (B, nh, hd, N) f32."""
     bsz, s, d = x.shape
-    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    hd = di // nh
-    zxbcdt = x @ params.in_proj
+    groups = par.active()
+    m = 1 if groups is None else groups.model_size
+    hd = cfg.d_inner // cfg.ssm_heads
+    # the rank's channels, state columns and heads (all of them off a mesh)
+    di, n, nh = cfg.d_inner // m, cfg.ssm_state // m, cfg.ssm_heads // m
+    zxbcdt = par.copy_to_model(x) @ params.in_proj
     z, xbc, dt = zxbcdt.split([di, di + 2 * n, nh], dim=-1)
     xbc, new_conv = causal_conv1d(xbc, params.conv_w, conv_state)
     xbc = F.silu(xbc)
     xi, bmat, cmat = xbc.split([di, n, n], dim=-1)
+    bmat, cmat = par.gather_from_model(bmat), par.gather_from_model(cmat)
     dt = F.softplus(dt)                                  # (B, S, nh)
-    a = -torch.exp(params.a_log.float())                 # (nh,)
+    a_log, d_skip = params.a_log, params.d_skip
+    if groups is not None:       # the rank's heads of the replicated leaves
+        heads = slice(groups.model_rank * nh, (groups.model_rank + 1) * nh)
+        a_log = par.copy_to_model(a_log)[heads]
+        d_skip = par.copy_to_model(d_skip)[heads]
+    a = -torch.exp(a_log.float())                        # (nh,)
     xh = xi.reshape(bsz, s, nh, hd)
     h0 = (ssm_state if ssm_state is not None
-          else torch.zeros((bsz, nh, hd, n), dtype=torch.float32,
+          else torch.zeros((bsz, nh, hd, cfg.ssm_state), dtype=torch.float32,
                            device=x.device))
     y, h_last = fused_ssm_scan(dt, a, bmat, cmat, xh, h0, cfg.ssm_chunk,
                                "mamba2", remat)
-    y = y.to(x.dtype) + params.d_skip[None, None, :, None] * xh
+    y = y.to(x.dtype) + d_skip[None, None, :, None] * xh
     y = y.reshape(bsz, s, di)
-    # gated RMSNorm (mamba2's norm-before-out)
+    # gated RMSNorm (mamba2's norm-before-out): the mean over the full
+    # d_inner as a sum (over model) divided by it, the same ops on one
+    # device as on a world of one
     yf = y.float()
-    var = yf.square().mean(-1, keepdim=True)
+    var = par.copy_to_model(par.reduce_from_model(
+        yf.square().sum(-1, keepdim=True))) / cfg.d_inner
     y = ((yf * torch.rsqrt(var + cfg.norm_eps)).to(x.dtype) * params.norm_g
          * F.silu(z))
-    return y @ params.out_proj, h_last, new_conv
+    return par.reduce_from_model(y @ params.out_proj), h_last, new_conv

@@ -26,7 +26,7 @@ from repro_torch.launch.mesh import P
 from repro_torch.models import parallel as par
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (Attention, attention_block,
-                                          best_attention)
+                                          best_attention, kv_heads)
 from repro_torch.models.layers import (GatedMLP, Leaves, checkpointed,
                                        gated_mlp, rms_norm, rope)
 from repro_torch.models.moe import MoE, moe_layer
@@ -99,7 +99,7 @@ def _apply_attn_block(p, x, positions, cfg, window, cache, cache_pos,
 
 def _dense_ffn(cfg):
     """The gated MLP; under a ``parallel_context`` ``wi`` column-parallel
-    (the rank's gate and up columns, ``convert.gated_to_rank_layout``)
+    (the rank's gate and up columns, ``convert.rank_layout``)
     and ``wo`` row-parallel."""
     def fn(p, h):
         y = gated_mlp(p.mlp, par.copy_to_model(h), cfg.mlp)
@@ -225,15 +225,19 @@ def encoder_stack(cfg, blocks, x, positions, remat=True):
 
 
 def _noncausal_self_attn(p, x, positions, cfg, remat=True):
+    """Under a ``parallel_context`` Megatron's, as ``attention_block``."""
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = rope((x @ p.wq).reshape(b, s, h, dh), positions, cfg.rope_theta)
-    k = rope((x @ p.wk).reshape(b, s, kv, dh), positions, cfg.rope_theta)
-    v = (x @ p.wv).reshape(b, s, kv, dh)
+    dh = cfg.head_dim
+    x = par.copy_to_model(x)
+    q = x @ p.wq
+    h = q.shape[-1] // dh                  # the rank's heads
+    q = rope(q.reshape(b, s, h, dh), positions, cfg.rope_theta)
+    k, v = kv_heads(cfg, x @ p.wk, x @ p.wv)
+    k = rope(k, positions, cfg.rope_theta)
     o = best_attention(q, k, v, positions, positions, window=BIG_WINDOW,
                        causal=False, attn_softcap=cfg.attn_softcap,
                        remat=remat)
-    return o.reshape(b, s, h * dh) @ p.wo
+    return par.reduce_from_model(o.reshape(b, s, h * dh) @ p.wo)
 
 
 def decoder_xattn_stack(cfg, blocks, x, positions, enc_out, enc_positions,
@@ -244,10 +248,14 @@ def decoder_xattn_stack(cfg, blocks, x, positions, enc_out, enc_positions,
     ``enc_out`` (forward / prefill) the cross K/V are computed fresh and,
     given a cache, stored as its new ``xk``/``xv`` (the encoder's length,
     as the reference's returned cache has them); at decode they are read
-    back.  Returns (x, cache).
+    back.  Returns (x, cache).  Under a ``parallel_context`` the
+    cross-attention is Megatron's (``wq``/``wk``/``wv`` column-parallel,
+    ``wo`` row-parallel), ``enc_out`` passing ``copy_to_model`` once.
     """
     ffn = _dense_ffn(cfg)
-    h_, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
+    if enc_out is not None:
+        enc_out = par.copy_to_model(enc_out)
 
     def body(x, p, c, enc_out):
         h = rms_norm(x, p.ln1, cfg.norm_eps)
@@ -259,17 +267,19 @@ def decoder_xattn_stack(cfg, blocks, x, positions, enc_out, enc_positions,
         # cross attention: no rope, the encoder output as K/V
         h = rms_norm(x, p.ln_x, cfg.norm_eps)
         b, s, _ = h.shape
-        q = (h @ p.xattn.wq).reshape(b, s, h_, dh)
+        q = par.copy_to_model(h) @ p.xattn.wq
+        heads = q.shape[-1] // dh          # the rank's heads
+        q = q.reshape(b, s, heads, dh)
         if enc_out is not None:
-            se = enc_out.shape[1]
-            ck = (enc_out @ p.xattn.wk).reshape(b, se, kv, dh)
-            cv = (enc_out @ p.xattn.wv).reshape(b, se, kv, dh)
+            ck, cv = kv_heads(cfg, enc_out @ p.xattn.wk,
+                              enc_out @ p.xattn.wv)
         else:
             ck, cv = c["xk"], c["xv"]
         o = best_attention(q, ck, cv, positions, enc_positions,
                            window=BIG_WINDOW, causal=False,
                            attn_softcap=cfg.attn_softcap, remat=remat)
-        x = x + o.reshape(b, s, h_ * dh) @ p.xattn.wo
+        x = x + par.reduce_from_model(o.reshape(b, s, heads * dh)
+                                      @ p.xattn.wo)
         h = rms_norm(x, p.ln2, cfg.norm_eps)
         y, _ = ffn(p, h)
         return x + y, ck, cv

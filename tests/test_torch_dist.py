@@ -34,7 +34,7 @@ Without processes: ``model.pspecs``, ``zero1_pspecs`` and the cache
 pspecs leaf for leaf with the reference's for all ten reduced archs
 (specs compared as tuples), ``engine_state_specs`` (shapes and specs),
 ``placements``' refusals, ``make_production_mesh`` in a small world, and
-``train`` refusing a mesh it would run replicated.
+``train`` refusing plain axis sizes and meshes an arch does not cut.
 """
 from __future__ import annotations
 
@@ -560,20 +560,29 @@ def test_production_mesh_refuses_a_small_world():
 
 
 def test_train_refuses_a_mesh_it_would_run_replicated():
-    """What training across ranks has not ported yet: the MoE family
-    under any axis above 1, the SSM family under ``model`` above 1
-    (gemma-2b trains under such meshes: test_torch_dist_train.py)."""
+    """What training across ranks refuses rather than run replicated or
+    padded: plain axis sizes above 1, given or active (every family
+    trains on a ``DeviceMesh``: test_torch_dist_train*.py), an arch
+    that does not cut ``model`` ways, and experts that do not (the
+    reference's GSPMD fallback for them is not ported)."""
     for arch, sizes in (("deepseek-moe-16b", {"data": 2, "model": 1}),
                         ("deepseek-moe-16b", {"data": 1, "model": 2}),
                         ("falcon-mamba-7b", {"data": 1, "model": 2})):
         cfg = t_get_reduced(arch)
-        with pytest.raises(NotImplementedError, match="training across"):
+        with pytest.raises(ValueError, match="DeviceMesh"):
             ttrain.train(cfg, steps=1, global_batch=2, seq_len=8,
                          device="cpu", mesh=sizes)
         with tmesh.mesh_context(sizes), \
-                pytest.raises(NotImplementedError):
+                pytest.raises(ValueError, match="DeviceMesh"):
             ttrain.train(cfg, steps=1, global_batch=2, seq_len=8,
                          device="cpu")
+    with pytest.raises(ValueError, match="d_inner 128"):
+        ttrain.refuse(t_get_reduced("falcon-mamba-7b"), {"model": 3})
+    uneven = dataclasses.replace(t_get_reduced("deepseek-moe-16b"),
+                                 n_experts=6)
+    with pytest.raises(ValueError, match="n_experts 6"):
+        ttrain.train(uneven, steps=1, global_batch=2, seq_len=8,
+                     device="cpu", mesh={"data": 1, "model": 4})
 
 
 # ------------------------------------------------------ a world of 4 ranks

@@ -49,9 +49,10 @@ the one-device twins:
   cpu``: the reference driver's lines, printed once (rank 0), on the
   (1, 2) mesh ``choose_mesh_shape(2)`` picks.
 
-And without processes: ``train`` refuses MoE under any axis above 1 and
-the other non-dense families under ``model`` above 1, naming the
-ROADMAP item, and refuses plain axis sizes above 1.
+And without processes: ``train`` refuses plain axis sizes above 1 and a
+mesh that an arch does not cut evenly.  The MoE family and the tensor
+parallelism of the other families: ``test_torch_dist_train_moe.py``,
+``test_torch_dist_train_moe_ref.py``, ``test_torch_dist_train_tp.py``.
 """
 from __future__ import annotations
 
@@ -585,12 +586,15 @@ def test_cli_under_torchrun_prints_once(capsys):
     ("falcon-mamba-7b", {"model": 2}), ("zamba2-7b", {"data": 1, "model": 2}),
     ("internvl2-26b", {"model": 2}), ("seamless-m4t-large-v2", {"model": 4})])
 def test_train_refuses_what_is_not_ported(arch, sizes):
+    """What training across ranks still refuses: plain axis sizes above
+    1 (they only describe a mesh; every family trains on a
+    ``DeviceMesh``: test_torch_dist_train_moe.py, _tp.py), and a mesh
+    that the arch does not cut evenly (each size above 1 made 3)."""
     cfg = get_reduced(arch)
-    item = (ttrain.MOE_ITEMS if cfg.family == "moe" else ttrain.TP_ITEM)
-    with pytest.raises(NotImplementedError, match=re.escape(item)):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         ttrain.train(cfg, steps=1, global_batch=2, seq_len=8, device="cpu",
                      mesh=sizes)
-    # the dense family trains on a DeviceMesh; plain sizes only describe
-    with pytest.raises(ValueError, match="DeviceMesh"):
-        ttrain.train(get_reduced(ARCH), steps=1, global_batch=2, seq_len=8,
-                     device="cpu", mesh=sizes)
+    uneven = {a: 3 if n > 1 else n for a, n in sizes.items()}
+    with pytest.raises(ValueError, match="does not cut 3 ways"):
+        ttrain.train(cfg, steps=1, global_batch=3, seq_len=8, device="cpu",
+                     mesh=uneven)
