@@ -129,7 +129,7 @@ then:
    blocks of 512): the gradients agree and remat lowers peak memory;
    then the reference's drills on the card (the loss falls on reduced
    gemma-2b; reduced falcon-mamba-7b resumes from its checkpoint within
-   rtol 1e-5 of a straight run, under deterministic algorithms); and in
+   rtol 1e-5 of a straight run); and in
    the fourth process, gemma-2b at published widths cut to 2 layers in
    f32 trains 3 steps on the card and on the CPU from one draw (losses,
    grad norms and parameters agree);
@@ -163,6 +163,24 @@ then:
    1e-4, no kernel launched; the two steps in turns on one state (median
    ms, busy ms and idle share of one profiled step each), the
    collectives a step by kind, peak device memory.
+11. the production mesh's dry run, in a fifth process beside phases 2
+   to 5 (``phase_dryrun``): deepseek-moe-16b at its published widths cut
+   to 4 layers, its loss and every gradient twice with deterministic
+   algorithms off, bit-equal; gemma2-27b at its published widths cut to
+   4 layers, a prefill of 2 x 64 and 8 decode steps on one device and
+   on an NCCL world of one under a (1, 1) mesh (the serve steps'
+   groups, the cache the rank's block), every step's logits and the
+   cache bit-equal; then ``catapultdb x search`` on both production
+   meshes on a real 1,000,000 x 768 shard, its ``lsh_hash`` and
+   ``gather_distance`` launches held to ``expected_launches``.  The
+   other dry-run cells, ``python -m repro_torch.launch.dryrun --device
+   cuda`` (rank 0 of a fake 256- or 512-rank world, fake tensors of its
+   local shapes) on gemma2-27b x train_4k (its depth cut to 4
+   layers: 46 would take ~530 s of host a mesh), prefill_32k and decode_32k,
+   deepseek-moe-16b x decode_32k and gemma-2b x decode_32k (refused:
+   8 heads over model = 16), each on both meshes, run from before
+   phase 1 as processes of the lowest CPU priority (``DryCells``: host
+   work that launches nothing), read before phase 10; one line a cell.
 
 Kernel launch counts are set to 0 just before each path (the Vamana
 build, each twin's replay, and each deployment-width twin) and read just
@@ -178,8 +196,8 @@ launches no ``gather_distance``, its rerank being on the host; a
 sharded or tiered search launches, shard by shard and tier by tier,
 what ``PathSpy`` records; the mesh search each virtual device's
 catapult RAM step, and a rank's step as many as the tuple step; the LM
-path and the training paths (on one device and on a mesh) launch
-nothing,
+path, the training paths and the serve steps (on one device and on a
+mesh) launch nothing, the dry run's search cell a rank's catapult step,
 the RAG retrieval its Vamana build's and one catapult batch's).
 Any failed check exits non-zero.  Prints the
 card's name and power limit first, a ``{"kernels": [...]}`` line, and as
@@ -197,6 +215,7 @@ import subprocess
 import tempfile
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -267,14 +286,31 @@ DIST_TOP_OPS = 8               # host ops listed whose time grew the most
 # launch.train.train(mesh=(1, 1)) beside as many one-device steps from the
 # same seed-0 init.  The world of one runs the one-device ops (the MoE
 # routing's and mamba2's norm's sums over groups of one, logsumexp's own
-# backward in the vocab-parallel cross entropy), so under deterministic
-# algorithms every step's loss is bit-equal on an H100; held to
+# backward in the vocab-parallel cross entropy) and the MoE combine adds
+# in a fixed order, so every step's loss is bit-equal on an H100; held to
 # DIST_FAMILY_LOSS0_RTOL at step 0 and DIST_FAMILY_LOSS_RTOL after
 DIST_FAMILIES = (("deepseek-moe-16b", dict(n_layers=4), 5),   # dense + 3 MoE
                  ("falcon-mamba-7b", dict(n_layers=2), 3),
                  ("zamba2-7b", dict(n_layers=7), 3))  # 6 mamba2, shared, 1
 DIST_FAMILY_LOSS0_RTOL, DIST_FAMILY_LOSS_RTOL = 1e-6, 1e-4
 DIST_FAMILY_PAIRS = 3          # mesh and one-device steps timed in turns
+# the dry-run phase (a fifth card process): deepseek-moe-16b's train step
+# twice, deterministic algorithms off (bit-equal); gemma2-27b's prefill of
+# DRY_SERVE_B x DRY_SERVE_S and DRY_SERVE_DECODE decode steps on an NCCL
+# world of one against one device (bit-equal); then these dry-run cells on
+# both production meshes (gemma-2b is refused: 8 heads over model = 16)
+DRY_MOE = ("deepseek-moe-16b", dict(n_layers=4))     # dense + 3 MoE
+DRY_SERVE = ("gemma2-27b", dict(n_layers=4))         # 2 local, 2 global
+DRY_SERVE_B, DRY_SERVE_S, DRY_SERVE_DECODE = 2, 64, 8
+DRY_CELLS = (("gemma2-27b", "train_4k"), ("gemma2-27b", "prefill_32k"),
+             ("gemma2-27b", "decode_32k"), ("deepseek-moe-16b", "decode_32k"),
+             ("gemma-2b", "decode_32k"), ("catapultdb", "search"))
+DRY_REFUSED = ("gemma-2b",)
+# train_4k on fakes at 46 layers is ~530 s of host a mesh on the card's
+# machine, beside phases 2-5 (which it slowed by ~100 s): its depth is
+# cut; `launch/dryrun.py --all` runs it whole
+DRY_LAYERS = {("gemma2-27b", "train_4k"): 4}
+DRY_JOBS = 2                   # fake cells at once (niced host work)
 # streaming ingest: a database born empty at deployment width (d=768,
 # degree 64), puts of 64 keyed rows in turns with 64-query searches.  Cut
 # from make_medrag_zipf(n=4,096) and IngestSpec()'s cutover 256 and
@@ -4641,13 +4677,10 @@ def train_drills(dev) -> dict:
     settings: the loss falls on reduced gemma-2b (60 steps of 8 x 32,
     lr 3e-3, warmup 5); reduced falcon-mamba-7b trains 8 steps with a
     checkpoint every 4, resumes to 12, and matches 12 straight steps
-    within rtol 1e-5, under ``torch.use_deterministic_algorithms``
-    (warn_only: what it warns of is printed).  ``CUBLAS_WORKSPACE_CONFIG``
-    is left unset, so cuBLAS is warned of: set for the whole process it
-    made gemma-2b's decode step half again as slow on an H100
-    (``kernel_times.py --decode``); on one stream cuBLAS repeats its
-    results, which the drill's equality checks."""
-    import warnings
+    within rtol 1e-5.  ``CUBLAS_WORKSPACE_CONFIG`` is left unset: set
+    for the whole process it made gemma-2b's decode step half again as
+    slow on an H100 (``kernel_times.py --decode``); on one stream cuBLAS
+    repeats its results, which the drill's equality checks."""
     from repro_torch.configs import get_reduced
     from repro_torch.launch import train
     from repro_torch.optim import adamw
@@ -4675,30 +4708,21 @@ def train_drills(dev) -> dict:
     kw = dict(opt_cfg=adamw.AdamWConfig(total_steps=12, warmup=2),
               device=dev, log=quiet, **DRILL_RESTART)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp, \
-            warnings.catch_warnings(record=True) as warned:
-        warnings.simplefilter("always")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            def drill():
-                train.train(cfg, steps=8, ckpt_dir=tmp, ckpt_every=4, **kw)
-                resumed = train.train(cfg, steps=12, ckpt_dir=tmp,
-                                      resume=True, **kw)[2]
-                return resumed, train.train(cfg, steps=12, **kw)[2]
-            (resumed, full), made = counted(drill)
-        finally:
-            torch.use_deterministic_algorithms(False)
+    with tempfile.TemporaryDirectory() as tmp:
+        def drill():
+            train.train(cfg, steps=8, ckpt_dir=tmp, ckpt_every=4, **kw)
+            resumed = train.train(cfg, steps=12, ckpt_dir=tmp, resume=True,
+                                  **kw)[2]
+            return resumed, train.train(cfg, steps=12, **kw)[2]
+        (resumed, full), made = counted(drill)
     rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, full[8:]))
     out.update(restart_rel=rel, restart_s=time.perf_counter() - t0,
-               resumed=resumed, full=full[8:],
-               deterministic_warnings=sorted({
-                   str(w.message).splitlines()[0][:200] for w in warned}))
+               resumed=resumed, full=full[8:])
     out["launches"]["train_drill_restart"] = made
     print(f"drills: loss {first:.4f} -> {last:.4f} (mean of the first and "
           f"last 10 of 60 steps, {out['fall_s']:.1f} s); restart resumed "
           f"steps 8-11 within {rel:.3g} of a straight run (rtol 1e-5, "
-          f"{out['restart_s']:.1f} s); deterministic mode warned of "
-          f"{out['deterministic_warnings'] or 'nothing'}", flush=True)
+          f"{out['restart_s']:.1f} s)", flush=True)
     check(not any(made.values()), f"the restart drill launched {made}")
     check(len(resumed) == 4 and rel <= 1e-5,
           f"the resumed losses {resumed} part from {full[8:]} by {rel:.3g}")
@@ -5036,6 +5060,257 @@ class ShiftGraph:
         return False
 
 
+def moe_repeat(dev, card: str) -> dict:
+    """deepseek-moe-16b at its published widths cut to DRY_MOE's depth:
+    the loss and every gradient of one batch, twice, with deterministic
+    algorithms off, must be bit-equal (the MoE combine adds each token's
+    slots in a fixed order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.models import model as M
+    from repro_torch.models.steps import loss_and_grads
+    arch, cut = DRY_MOE
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    print(f"reduced: MoE repeat {arch} n_layers {get_config(arch).n_layers} "
+          f"-> {cut['n_layers']} (published widths)", flush=True)
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "deterministic algorithms are on")
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
+        cfg.vocab_size, TRAIN_S, TRAIN_B).batch_at(0).items()}
+
+    def run():
+        loss, grads = loss_and_grads(cfg, model, batch)
+        return loss.detach(), grads
+    (loss_a, grads_a), made_a = counted(run)
+    (loss_b, grads_b), made_b = counted(run)
+    parted = sorted(n for n in grads_a
+                    if not torch.equal(grads_a[n], grads_b[n]))
+    print(f"MoE repeat {arch} ({cut}, batch {TRAIN_B} x {TRAIN_S}) on "
+          f"{card}: losses {float(loss_a)!r} and {float(loss_b)!r}; "
+          f"{len(grads_a) - len(parted)} of {len(grads_a)} gradients "
+          f"bit-equal", flush=True)
+    check(torch.equal(loss_a, loss_b) and not parted,
+          f"the MoE step did not repeat itself: losses {float(loss_a)!r} "
+          f"{float(loss_b)!r}, gradients parted {parted[:8]}")
+    check(not any(made_a.values()) and not any(made_b.values()),
+          f"the MoE step launched {made_a} {made_b}")
+    del model, grads_a, grads_b
+    torch.cuda.empty_cache()
+    return {"losses": [float(loss_a), float(loss_b)], "launches": made_a}
+
+
+def serve_world_of_one(dev, card: str) -> dict:
+    """gemma2-27b at its published widths cut to DRY_SERVE's depth: a
+    prefill and DRY_SERVE_DECODE decode steps on one device, then on an
+    NCCL world of one rank under a (1, 1) mesh (the serve steps'
+    ``groups``, the cache the rank's block): every step's logits and the
+    cache bit-equal."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as tm
+    from repro_torch.launch.train import RankPlan
+    from repro_torch.models import model as M
+    from repro_torch.models import parallel as par
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+    arch, cut = DRY_SERVE
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    print(f"reduced: serve across ranks {arch} n_layers "
+          f"{get_config(arch).n_layers} -> {cut['n_layers']} (published "
+          f"widths), batch {DRY_SERVE_B} x {DRY_SERVE_S} + "
+          f"{DRY_SERVE_DECODE} decode steps", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    prompt = {"tokens": torch.randint(0, cfg.vocab_size,
+                                      (DRY_SERVE_B, DRY_SERVE_S),
+                                      generator=gen, device=dev,
+                                      dtype=torch.int32)}
+    toks = torch.randint(0, cfg.vocab_size,
+                         (DRY_SERVE_DECODE, DRY_SERVE_B, 1), generator=gen,
+                         device=dev, dtype=torch.int32)
+    max_len = DRY_SERVE_S + DRY_SERVE_DECODE
+
+    def serve(model, cache, groups):
+        pre = make_prefill_step(cfg, groups=groups)
+        dec = make_decode_step(cfg, groups=groups)
+        logits, cache = pre(model, prompt, cache)
+        out = [logits.clone()]
+        for i, t in enumerate(toks):
+            logits, cache = dec(model, t, cache, DRY_SERVE_S + i)
+            out.append(logits.clone())
+        torch.cuda.synchronize()
+        return out, cache
+
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    t0 = time.perf_counter()
+    (one, one_cache), made_one = counted(lambda: serve(
+        model, M.init_cache(cfg, DRY_SERVE_B, max_len, dev), None))
+    one_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        tm.init_world(dev.type, init_method=f"file://{tmp}/store", rank=0,
+                      world_size=1)
+        try:
+            mesh = tm.make_local_mesh(1, 1, dev.type)
+            plan = RankPlan(cfg, mesh)
+            plan.shard(model)
+            par.COUNTS.clear()
+            bytes_before = dict(par.BYTES)
+            t0 = time.perf_counter()
+            (ranked, cache), made = counted(lambda: serve(
+                model, M.init_cache(cfg, DRY_SERVE_B, max_len, dev,
+                                    mesh=mesh), plan.groups))
+            ranked_s = time.perf_counter() - t0
+            counts = dict(par.COUNTS)
+            moved = {k: v - bytes_before.get(k, 0)
+                     for k, v in par.BYTES.items()}
+        finally:
+            dist.destroy_process_group()
+    equal = [torch.equal(a, b) for a, b in zip(ranked, one)]
+    cache_equal = all(torch.equal(cache[k], one_cache[k]) for k in one_cache)
+    print(f"serve across ranks {arch} ({cut}) on {card}: "
+          f"{'NCCL' if dev.type == 'cuda' else 'gloo'} world of one, "
+          f"(1, 1) mesh: logits bit-equal at {sum(equal)} of {len(equal)} "
+          f"steps, cache bit-equal {cache_equal}; {ranked_s:.2f} s against "
+          f"one device's {one_s:.2f} s; collectives {counts}, bytes "
+          f"{moved}", flush=True)
+    check(all(equal) and cache_equal,
+          f"serve across ranks {arch}: the world of one parted from one "
+          f"device (steps {equal}, cache {cache_equal})")
+    check(not any(made.values()) and not any(made_one.values()),
+          f"serve across ranks launched {made} {made_one}")
+    del model, one, ranked, cache, one_cache
+    torch.cuda.empty_cache()
+    return {"steps_equal": equal, "cache_equal": cache_equal,
+            "seconds": ranked_s, "one_device_seconds": one_s,
+            "collectives": counts, "collective_bytes": moved,
+            "launches": made}
+
+
+def dry_cell_line(res: dict, card: str) -> str:
+    """One printed line a dry-run cell."""
+    cut = f" ({res['n_layers']} layers)" if "n_layers" in res else ""
+    head = (f"dryrun {res['arch']}{cut} x {res['shape']} x {res['mesh']} "
+            f"on {card}")
+    if res["status"] != "ok":
+        return f"{head}: {res['status']} ({res.get('reason', '')})"
+    rf, mem = res["roofline"], res["memory"]
+    return (f"{head}: ok, {rf['chips']} ranks, flops {rf['flops']!r} "
+            f"(model {rf['model_flops']!r}), coll_bytes {rf['coll_bytes']!r} "
+            f"{ {k: v for k, v in rf['coll_breakdown'].items() if v} }, "
+            f"peak {mem['peak_bytes_per_chip'] / 1e9:.3f} GB a rank, fits "
+            f"{mem['fits_hbm']}, dominant {rf['dominant']}, "
+            f"{res['compile_s']} s")
+
+
+def check_dry_cell(res: dict, card: str) -> None:
+    """Print one dry-run cell's line and hold it to its expected status:
+    ``refused`` for DRY_REFUSED, else ``ok`` with FLOPs and collective
+    bytes above 0 on 256 or 512 ranks."""
+    print(dry_cell_line(res, card), flush=True)
+    tag = f"{res['arch']} x {res['shape']} x {res['mesh']}"
+    want = "refused" if res["arch"] in DRY_REFUSED else "ok"
+    check(res["status"] == want,
+          f"dryrun {tag}: {res['status']}, expected {want}")
+    if want == "ok":
+        rf = res["roofline"]
+        check(rf["flops"] > 0 and rf["coll_bytes"] > 0 and res["chips"]
+              == (512 if res["mesh"] == "multi_pod" else 256),
+              f"dryrun {tag}: {rf}")
+
+
+def phase_dryrun(seed: int, dev, card: str = "") -> dict:
+    """The fifth card process: ``moe_repeat``, ``serve_world_of_one``,
+    then the dry run's search cell on both production meshes, here on the
+    card (its 1,000,000 x 768 shard), its kernel launches held to
+    ``expected_launches`` through ``spy_lookups``.  (The fake cells run
+    in ``DryCells``.)  ``seed`` is unused: every draw is seeded in the
+    functions."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    out = {"moe_repeat": moe_repeat(dev, card),
+           "serve": serve_world_of_one(dev, card), "cells": {}}
+    launches = {"dryrun_moe_repeat": out["moe_repeat"]["launches"],
+                "dryrun_serve": out["serve"]["launches"]}
+    for multi in (False, True):
+        (res, iters), made = counted(lambda: spy_lookups(
+            lambda: dryrun.run_cell("catapultdb", "search", multi, dev)))
+        want = expected_launches("catapult", "unfused", iters)
+        check(made == want, f"dryrun search ({res['mesh']}) launched "
+              f"{made}, expected {want}")
+        launches[f"dryrun_search_{res['mesh']}"] = made
+        res["launches"] = made
+        check_dry_cell(res, card)
+        out["cells"][f"catapultdb__search__{'mp' if multi else 'sp'}"] = res
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase dryrun: {out['seconds']:.1f} s", flush=True)
+    return {"dryrun": out}
+
+
+class DryCells:
+    """The dry run's fake cells (DRY_CELLS but the search, on both
+    production meshes), each ``python -m repro_torch.launch.dryrun
+    --device cuda`` in a process of its own at the lowest CPU priority,
+    DRY_JOBS at once, started before phase 1: host work on fake tensors
+    (gemma2-27b's train_4k minutes of it) that launches nothing on the
+    card, on cores the main process leaves idle.  ``result()`` waits for
+    them and checks each (``check_dry_cell``); leaving the ``with`` stops
+    any still running."""
+
+    def __init__(self, tmp: Path, dev):
+        self.tmp, self.dev, self.procs = tmp, dev, []
+        self.cells = [(arch, shape, multi) for arch, shape in DRY_CELLS
+                      if arch != "catapultdb" for multi in (False, True)]
+
+    def __enter__(self):
+        self.pool = ThreadPoolExecutor(DRY_JOBS)
+        return self
+
+    def start(self) -> None:
+        from repro_torch.configs import get_config
+        for (arch, shape), n in DRY_LAYERS.items():
+            print(f"reduced: dryrun {arch} x {shape} n_layers "
+                  f"{get_config(arch).n_layers} -> {n} (published widths, "
+                  f"fake tensors)", flush=True)
+        self.t0 = time.perf_counter()
+        self.runs = [self.pool.submit(self._run, *c) for c in self.cells]
+
+    def _run(self, arch, shape, multi):
+        tag = f"{arch}__{shape}__{'mp' if multi else 'sp'}"
+        dest = self.tmp / f"{tag}.json"
+        layers = DRY_LAYERS.get((arch, shape))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--device", self.dev.type, "--out",
+             str(dest)] + (["--multi-pod"] if multi else [])
+            + ([] if layers is None else ["--layers", str(layers)]),
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, preexec_fn=lambda: os.nice(19))
+        self.procs.append(proc)
+        _, err = proc.communicate()
+        return tag, proc.returncode, err, dest
+
+    def result(self, card: str) -> dict:
+        t0 = time.perf_counter()
+        out = {}
+        for run in self.runs:
+            tag, rc, err, dest = run.result()
+            check(rc == 0, f"dryrun {tag} exited {rc}: {err[-2000:]}")
+            out[tag] = json.loads(dest.read_text())
+            check_dry_cell(out[tag], card)
+        print(f"dryrun fake cells: {time.perf_counter() - self.t0:.1f} s "
+              f"since their start; waited {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
+
+    def __exit__(self, *exc):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        return False
+
+
 class TierPhases:
     """A second process on the card, started after phase 1 (so no kernel
     timing overlaps it) beside phases 2 to 5: ``--tiers`` runs the
@@ -5046,7 +5321,9 @@ class TierPhases:
     phases (``phase_ingest_all``; every cutover, growth and consolidate
     is a Vamana rebuild, host RobustPrune again), and ``--models`` (a
     fourth) the LM twins (``phase_lm_twins``; CPU twins at published
-    widths); run in turn they would push the run past its time limit.  Each one's launch counts come
+    widths), and ``--dryrun`` (a fifth) the production mesh's dry run
+    (``phase_dryrun``; host work on fake tensors); run in turn they
+    would push the run past its time limit.  Each one's launch counts come
     back in its JSON.  ``result()`` waits for it, prints its log and
     reads the JSON; leaving the ``with`` stops it."""
 
@@ -5232,12 +5509,11 @@ def dist_family(arch: str, cut: dict, steps: int, mesh, dev,
     ``cut``, ``steps`` steps of the one-device ``train`` (``mesh`` of
     plain sizes 1), then of ``train(mesh=mesh)`` (one after the other:
     two states may not fit beside the other card processes), the losses
-    held to each other (both under deterministic algorithms), the mesh
+    held to each other, the mesh
     run's collectives counted and its peak memory read; then
     DIST_FAMILY_PAIRS mesh and one-device steps in
     turns on the mesh run's state, one of each profiled (busy ms, idle
     share against the median)."""
-    import warnings
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch import mesh as tm
@@ -5255,31 +5531,17 @@ def dist_family(arch: str, cut: dict, steps: int, mesh, dev,
               device=dev, opt_cfg=adamw.AdamWConfig(total_steps=steps),
               log=lambda *a: None)
     torch.cuda.empty_cache()
-    # both runs under deterministic algorithms (warn_only; what it warns
-    # of is printed): the MoE combine's index_add_ and the backward of
-    # its gathers add in atomic order on the card otherwise, so a run
-    # does not repeat its own losses (two one-device deepseek-moe runs
-    # parted by 1.2e-6 and 1.5e-6 at step 0 on an H100, and by 0 under
-    # deterministic algorithms); the timed steps below run without it
-    with warnings.catch_warnings(record=True) as warned:
-        warnings.simplefilter("always")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            with StepTimer() as one:
-                _, _, one_losses = train.train(
-                    cfg, mesh={"data": 1, "model": 1}, **kw)
-            torch.cuda.empty_cache()
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            par.COUNTS.clear()
-            with StepTimer() as ranked:
-                (model, opt_state, losses), made = counted(
-                    lambda: train.train(cfg, mesh=mesh, **kw))
-        finally:
-            torch.use_deterministic_algorithms(False)
-    deterministic_warnings = sorted({str(w.message).splitlines()[0][:200]
-                                     for w in warned})
+    with StepTimer() as one:
+        _, _, one_losses = train.train(cfg, mesh={"data": 1, "model": 1},
+                                       **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    par.COUNTS.clear()
+    with StepTimer() as ranked:
+        (model, opt_state, losses), made = counted(
+            lambda: train.train(cfg, mesh=mesh, **kw))
     peak = (torch.cuda.max_memory_allocated() - base) / 1e9
     counts = {k: v / steps for k, v in par.COUNTS.items()}
     check(not any(made.values()), f"dist train {arch} launched {made}")
@@ -5324,8 +5586,7 @@ def dist_family(arch: str, cut: dict, steps: int, mesh, dev,
           f"{idle['mesh'] or float('nan'):.3f} / "
           f"{idle['one'] or float('nan'):.3f}; collectives a step "
           f"{counts}; peak device memory {peak:.2f} GB; kernel launches "
-          f"{made}; deterministic mode warned of "
-          f"{deterministic_warnings or 'nothing'}", flush=True)
+          f"{made}", flush=True)
     return dict(cut=cut, steps=steps, losses=losses,
                 one_device_losses=one_losses, loss_rel=rel,
                 grad_norms=ranked.gnorm, one_device_grad_norms=one.gnorm,
@@ -5334,8 +5595,7 @@ def dist_family(arch: str, cut: dict, steps: int, mesh, dev,
                 one_device_step_ms=med["one"], busy_ms=busy["mesh"],
                 one_device_busy_ms=busy["one"], idle_share=idle["mesh"],
                 one_device_idle_share=idle["one"],
-                collectives_per_step=counts, peak_gb=peak, launches=made,
-                deterministic_warnings=deterministic_warnings)
+                collectives_per_step=counts, peak_gb=peak, launches=made)
 
 
 def phase_dist_families(seed: int, dev, card: str = "") -> dict:
@@ -5555,6 +5815,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # the run's own third process
     ap.add_argument("--models", default=None, metavar="JSON",
                     help=argparse.SUPPRESS)   # the run's own fourth process
+    ap.add_argument("--dryrun", default=None, metavar="JSON",
+                    help=argparse.SUPPRESS)   # the run's own fifth process
     args = ap.parse_args()
 
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -5597,21 +5859,29 @@ def main() -> int:
         out.update(phase_dist_families(args.seed, dev, card))
         Path(args.models).write_text(json.dumps(out, default=json_default))
         return 0
+    if args.dryrun:
+        Path(args.dryrun).write_text(json.dumps(
+            phase_dryrun(args.seed, dev, card), default=json_default))
+        return 0
     print(f"kernels built in {build_s:.1f} s into {build_dir}", flush=True)
     with tempfile.TemporaryDirectory() as tmp, \
+            DryCells(Path(tmp), dev) as dry_cells, \
             ShiftGraph(Path(tmp) / "shift_graph.npz") as shift_graph, \
             TierPhases(Path(tmp) / "tiers.json") as tier_phases, \
             TierPhases(Path(tmp) / "ingest.json",
                        "--ingest") as ingest_phases, \
             TierPhases(Path(tmp) / "models.json",
-                       "--models") as lm_phases:
+                       "--models") as lm_phases, \
+            TierPhases(Path(tmp) / "dryrun.json",
+                       "--dryrun") as dry_phases:
+        dry_cells.start()
         return run_phases(args, card, build_dir, build_s, t_run, dev,
                           shift_graph, (tier_phases, ingest_phases,
-                                        lm_phases))
+                                        lm_phases, dry_phases), dry_cells)
 
 
 def run_phases(args, card, build_dir, build_s, t_run, dev,
-               shift_graph, helpers) -> int:
+               shift_graph, helpers, dry_cells) -> int:
     """Every phase, in order (the LM serving and training phases alone
     after phase 1; then the tier phases and the sharded deployment in a second process,
     the ingest and baseline phases in a third and the LM twins in a
@@ -5646,6 +5916,7 @@ def run_phases(args, card, build_dir, build_s, t_run, dev,
     tiers = helpers[0].result()
     for helper in helpers[1:]:
         tiers.update(helper.result())
+    tiers["dryrun"]["cells"].update(dry_cells.result(card))
     t0 = time.perf_counter()
     dist_out = phase_dist(vectors, args.seed, dev, card, trained)
     dist_out["seconds"] = time.perf_counter() - t0

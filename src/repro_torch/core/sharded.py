@@ -46,6 +46,7 @@ from repro_torch.core.vamana import VamanaParams, build_vamana
 from repro_torch.device import resolve_device
 from repro_torch.launch.mesh import (P, axis_sizes, batch_axes, group_index,
                                      local_slice)
+from repro_torch.models import parallel as par
 
 
 def rebase_ids(local_ids: torch.Tensor, offset: int) -> torch.Tensor:
@@ -225,7 +226,9 @@ def _rank_search(mesh, spec: SearchSpec, n_per_shard: int):
         # the scatter-gather merge over the corpus shards, in shard order
         all_ids = [torch.empty_like(gids) for _ in range(sizes["model"])]
         all_d = [torch.empty_like(dists) for _ in range(sizes["model"])]
+        par.tally("all_gather", gids, len(all_ids))
         dist.all_gather(all_ids, gids.contiguous(), group=group)
+        par.tally("all_gather", dists, len(all_d))
         dist.all_gather(all_d, dists.contiguous(), group=group)
         ids, d = merge_topk(torch.stack(all_ids), torch.stack(all_d),
                             k=gids.shape[-1])

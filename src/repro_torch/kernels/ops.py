@@ -18,7 +18,8 @@ takes a lock: the sharded and tiered tiers launch from pool threads.
 
 Each wrapper runs inside ``obs.profiler.annotate("repro_torch.kernels.
 <name>")``: a named ``torch.profiler`` range when profiling is on, a
-shared no-op context otherwise.
+shared no-op context otherwise; it first calls every hook in
+``CALL_HOOKS`` with its name and arguments.
 """
 from __future__ import annotations
 
@@ -35,6 +36,9 @@ from repro_torch.obs.profiler import annotate
 LAUNCHES = {"gather_distance": 0, "lsh_hash": 0, "fused_hop_l2": 0,
             "fused_hop_pq": 0, "pq_adc": 0, "l2_distance": 0}
 _LAUNCHES_LOCK = threading.Lock()
+# hook(name, args, kwargs), called at every wrapper call on either path
+# (``launch.op_walk`` counts the kernels' operations through it)
+CALL_HOOKS: list = []
 
 # bucket tables hold 2**L rows and codes are non-negative int32
 MAX_LSH_BITS = 30
@@ -93,11 +97,14 @@ def _count(name: str) -> None:
 
 
 def _annotated(fn):
-    """Run the wrapper ``fn`` inside its profiler range."""
+    """Run the wrapper ``fn`` inside its profiler range, after telling
+    every hook in ``CALL_HOOKS`` of the call."""
     label = f"repro_torch.kernels.{fn.__name__}"
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
+        for hook in CALL_HOOKS:
+            hook(fn.__name__, args, kwargs)
         with annotate(label):
             return fn(*args, **kwargs)
     return wrapper

@@ -12,8 +12,10 @@ power limit.  ``count_params``, ``model_flops`` (6·N_active·D for
 training, 2·N_active·D for a forward) and ``analytic_hbm_bytes`` are the
 reference's arithmetic on the same ``ArchConfig`` fields, so they give
 the reference's numbers; only the constants differ.  The reference's
-HLO half (``collective_bytes``, ``analyze``) reads XLA's HLO text and
-has no counterpart here.
+HLO half reads XLA's compiled text; here ``collective_bytes`` takes the
+collectives' tally of a step's run and ``analyze`` its per-rank counts
+(``launch.op_walk``), which it multiplies by the chips, as the
+reference multiplies its walker's per-device totals.
 """
 from __future__ import annotations
 
@@ -24,6 +26,12 @@ from typing import Optional
 PEAK_FLOPS = 989e12       # dense bf16
 HBM_BW = 3.35e12          # bytes/s
 LINK_BW = 450e9           # bytes/s, NVLink each way
+HBM_PER_CARD = 80 * 10 ** 9  # bytes: the H100 SXM 80GB data sheet's 80 GB
+
+# the reference's collective kinds (HLO op names) by the port's
+# ``models.parallel.BYTES`` keys; ``broadcast`` has no HLO op of its own
+KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
+         "reduce_scatter": "reduce-scatter", "broadcast": "broadcast"}
 
 
 @dataclasses.dataclass
@@ -71,6 +79,37 @@ class RooflineTerms:
             "model_flops": self.model_flops,
             "useful_ratio": self.useful_ratio,
         }
+
+
+def collective_bytes(tally: dict) -> dict[str, int]:
+    """The collectives' result bytes by the reference's kind
+    (``all-gather``, ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+    ``collective-permute``, and ``broadcast``) from a tally keyed as
+    ``models.parallel.BYTES``."""
+    out = {k: 0 for k in ("all-gather", "all-reduce", "reduce-scatter",
+                          "all-to-all", "collective-permute")}
+    for k, v in tally.items():
+        kind = KINDS[k]
+        out[kind] = out.get(kind, 0) + int(v)
+    return out
+
+
+def analyze(walked: dict, chips: int, model_flops: Optional[float] = None,
+            hbm_bytes: Optional[float] = None) -> RooflineTerms:
+    """``RooflineTerms`` of a step from one rank's counts (``op_walk``:
+    its ``dot_flops`` and ``kernel_flops``, its collectives' bytes),
+    times ``chips`` (every rank runs the same program; the terms hold
+    global quantities and divide by chips x the per-card peaks), with
+    ``hbm_bytes`` from the analytic traffic model (``analytic_hbm_bytes``;
+    0 when not given: an eager run has no byte counter of its own)."""
+    coll = {k: float(v) * chips for k, v in
+            collective_bytes(walked["collectives"]).items()}
+    flops = (float(walked["dot_flops"])
+             + float(walked.get("kernel_flops", 0.0))) * chips
+    return RooflineTerms(flops=flops, hbm_bytes=float(hbm_bytes or 0.0),
+                         coll_bytes=float(sum(coll.values())),
+                         coll_breakdown=coll, chips=chips,
+                         model_flops=model_flops)
 
 
 # --------------------------------------------------------------------------

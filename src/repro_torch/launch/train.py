@@ -64,10 +64,11 @@ from repro_torch.models import parallel as par
 from repro_torch.models.steps import make_train_step
 from repro_torch.optim import adamw
 
-def build_shardings(cfg, mesh):
+def build_shardings(cfg, mesh, pspecs=None):
     """(the parameters' shardings, the AdamW moments' ZeRO-1 shardings):
-    trees of ``NamedSharding`` in the reference's stacked layout."""
-    pspec = M.pspecs(cfg)
+    trees of ``NamedSharding`` in the reference's stacked layout
+    (``pspecs``: the parameters' spec tree, ``M.pspecs(cfg)`` if None)."""
+    pspec = M.pspecs(cfg) if pspecs is None else pspecs
     param_sh = tree_map(lambda spec: NamedSharding(mesh, spec), pspec)
     dspec = adamw.zero1_pspecs(M.specs(cfg), pspec,
                                data_size=axis_sizes(mesh).get("data", 1))
@@ -155,16 +156,17 @@ class RankPlan:
     largest replicated dim, as falcon-mamba's ``d_skip``), a layer's
     moments live whole on one data rank (``owners``) and the others
     hold an empty tensor for them.  Every rank of the world builds one
-    (it makes process groups)."""
+    (it makes process groups).  ``pspecs``: the parameters' spec tree
+    (``M.pspecs(cfg)`` if None)."""
 
-    def __init__(self, cfg, mesh):
+    def __init__(self, cfg, mesh, pspecs=None):
         self.cfg, self.mesh = cfg, mesh
         self.sizes = axis_sizes(mesh)
         refuse(cfg, self.sizes)
         self.groups = par.groups_of(mesh)
         if self.groups is None:               # an idle rank
             return
-        param_sh, opt_sh = build_shardings(cfg, mesh)
+        param_sh, opt_sh = build_shardings(cfg, mesh, pspecs)
         params = _per_layer(cfg, param_sh)
         moments = _per_layer(cfg, opt_sh)
         if any(axis is not None for _, axis in params.values()) or any(

@@ -20,7 +20,10 @@ on the output.  With ``n_kv % model == 0`` the rank's KV heads are the
 ones its query groups use; otherwise its ``wk``/``wv`` columns cut
 inside a head, so K and V are rebuilt whole (``gather_from_model``,
 whose backward reduce-scatters their gradient) and the rank keeps the
-one KV head its queries share (``kv_heads``).
+one KV head its queries share (``kv_heads``).  Serving across ranks
+runs the same block on the rank's block of the decode cache; a cache
+whose positions split over the batch axes (a global batch of 1) takes
+``split_cache_attention``.
 """
 from __future__ import annotations
 
@@ -139,12 +142,47 @@ def best_attention(q, k, v, q_pos, k_pos, *, window, causal=True,
                            causal=causal, attn_softcap=attn_softcap)
 
 
-def write_at(buf, new, pos: int):
+def write_at(buf, new, pos: int, offset: int = 0, total: int | None = None):
     """``lax.dynamic_update_slice_in_dim(buf, new, pos, 1)`` in place:
-    the start clamps so the write fits, as XLA clamps it."""
+    the start clamps so the write fits, as XLA clamps it.  ``buf`` may
+    be the block of positions [offset, offset + len) of a buffer of
+    ``total`` positions: only the rows of ``new`` that land in it are
+    written."""
     s = new.shape[1]
-    start = min(max(int(pos), 0), buf.shape[1] - s)
-    buf[:, start: start + s] = new
+    total = buf.shape[1] if total is None else total
+    start = min(max(int(pos), 0), total - s)
+    lo, hi = max(start, offset), min(start + s, offset + buf.shape[1])
+    if lo < hi:
+        buf[:, lo - offset: hi - offset] = new[:, lo - start: hi - start]
+
+
+def split_cache_attention(q, k, v, cache, positions, cache_pos, groups, *,
+                          window, attn_softcap=None):
+    """Decode attention over a cache whose positions split over the batch
+    axes (``groups.kv_split``: a global batch of 1, replicated over them;
+    the rank holds block ``batch_rank`` of the positions): the rank writes
+    the new K/V rows that land in its block, scores its block, and the
+    softmax's max, its sum and the weighted values are reduced over the
+    batch axes (flash decoding's combine)."""
+    ck, cv = cache["k"], cache["v"]
+    n = ck.shape[1]
+    lo = groups.batch_rank * n
+    write_at(ck, k, cache_pos, lo, n * groups.batch_size)
+    write_at(cv, v, cache_pos, lo, n * groups.batch_size)
+    k_pos = lo + torch.arange(n, device=q.device)
+    b, sq, h, dh = q.shape
+    kv = ck.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, ck).float() / (dh ** 0.5)
+    scores = softcap(scores, attn_softcap)
+    scores = scores + _mask(positions, k_pos, window, True)
+    top = par.all_reduce(scores.amax(dim=-1), groups.batch, op="max")
+    p = torch.exp(scores - top[..., None])
+    total = par.all_reduce(p.sum(dim=-1), groups.batch)
+    out = torch.einsum("bkgqs,bskd->bqkgd",
+                       (p / total[..., None]).to(q.dtype), cv).float()
+    out = par.all_reduce(out.contiguous(), groups.batch).to(q.dtype)
+    return out.reshape(b, sq, h, dh)
 
 
 def attention_block(params, x, positions, *, cfg, window, kv_cache=None,
@@ -165,7 +203,12 @@ def attention_block(params, x, positions, *, cfg, window, kv_cache=None,
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
 
-    if kv_cache is not None:
+    groups = par.active()
+    if kv_cache is not None and groups is not None and groups.kv_split:
+        out = split_cache_attention(q, k, v, kv_cache, positions, cache_pos,
+                                    groups, window=window,
+                                    attn_softcap=cfg.attn_softcap)
+    elif kv_cache is not None:
         ck, cv = kv_cache["k"], kv_cache["v"]
         write_at(ck, k, cache_pos)
         write_at(cv, v, cache_pos)

@@ -19,7 +19,9 @@ takes ``params``: ``forward``, ``loss_fn``, ``prefill`` and
 specs and shapes (meta tensors) of the parameter tree, ``cache_pspecs``
 its decode cache's specs; ``tree_of`` groups the port's per-layer
 names into that stacked tree.  Caches are dicts of stacked tensors with the
-reference's names and shapes (``init_cache``); ``prefill`` and
+reference's names and shapes (``init_cache``; on a mesh the rank's
+block, which ``prefill``/``decode_step`` fill under a
+``parallel.parallel_context``, as the training path runs); ``prefill`` and
 ``decode_step`` write them in place, without autograd, and return them,
 so the reference's ``_merge_hybrid_cache`` (which reassembles scanned
 outputs) has no counterpart.  ``forward``, ``forward_hidden`` and
@@ -29,12 +31,13 @@ with the reference's remat points (``remat=True``).
 from __future__ import annotations
 
 import dataclasses
+from math import prod
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.launch.mesh import P
+from repro_torch.launch.mesh import P, axis_sizes, batch_axes
 from repro_torch.models import parallel as par
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (DTYPES, Embed, Leaves, checkpointed,
@@ -209,18 +212,53 @@ def cache_pspecs(cfg: ArchConfig, batch: int, max_len: int,
     return specs_of(cache_decl(cfg, batch, max_len, batch_axes, model_size))
 
 
+_KV_LEAVES = ("k", "v", "xk", "xv", "attn_k", "attn_v")
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, max_len: int,
+                 mesh=None) -> dict:
+    """The decode cache's leaves as {name: (shape, dtype)}: whole off a
+    mesh; on ``mesh`` (a ``DeviceMesh`` or plain axis sizes) this rank's
+    block under ``cache_pspecs(cfg, batch, max_len, batch_axes(mesh),
+    model)``, the reference's ``cache_specs`` cut per rank.  Where the
+    KV heads do not cut over ``model`` (``n_kv_heads % model``), a K/V
+    leaf holds the one whole KV head that the rank's query heads share
+    (``attention.kv_heads``), not the reference's cut of ``head_dim``."""
+    sizes = {} if mesh is None else axis_sizes(mesh)
+    m = sizes.get("model", 1)
+    decl = cache_decl(cfg, batch, max_len,
+                      batch_axes(sizes) if sizes else ("data",), m)
+
+    def cut(name, d):
+        if isinstance(d, dict):
+            return {k: cut(k, v) for k, v in d.items()}
+        shape, dtype, spec = d
+        shape = list(shape)
+        for dim, e in enumerate(spec):
+            n = prod(sizes.get(a, 1) for a in
+                     (() if e is None else (e,) if isinstance(e, str) else e))
+            if shape[dim] % n:
+                raise ValueError(f"the cache leaf {name} {tuple(d[0])} does "
+                                 f"not cut {n} ways along dim {dim} ({spec})")
+            shape[dim] //= n
+        if name in _KV_LEAVES and cfg.n_kv_heads % m:
+            shape[3:] = [1, cfg.head_dim]
+        return tuple(shape), dtype or DTYPES[cfg.dtype]
+    return cut("", decl)
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               device="cuda") -> dict:
-    """Zeros in the reference's cache layout, on ``device``."""
+               device="cuda", mesh=None) -> dict:
+    """Zeros in the reference's cache layout, on ``device``: the whole
+    cache, or on ``mesh`` this rank's block of it (``cache_shapes``)."""
     device = resolve_device(device)
 
     def make(d):
         if isinstance(d, dict):
             return {k: make(v) for k, v in d.items()}
-        shape, dtype, _ = d
-        return torch.zeros(shape, dtype=dtype or DTYPES[cfg.dtype],
-                           device=device)
-    return make(cache_decl(cfg, batch, max_len))
+        shape, dtype = d
+        return torch.zeros(shape, dtype=dtype, device=device)
+    return make(cache_shapes(cfg, batch, max_len, mesh))
 
 
 # --------------------------------------------------------------------------
@@ -399,9 +437,11 @@ def decode_step(cfg: ArchConfig, params, tokens, cache, pos: int):
     positions = int(pos) + torch.arange(1, device=x.device)
     if cfg.family in ("dense", "vlm", "moe"):
         kv = cache["dense"]["k"] if "dense" in cache else cache["k"]
+        groups = par.active()
+        length = kv.shape[2] * (groups.batch_size if groups is not None
+                                and groups.kv_split else 1)
         x, cache, _ = _attn_families(cfg, params, x, positions,
-                                     cfg.layer_windows(kv.shape[2]), cache,
-                                     pos)
+                                     cfg.layer_windows(length), cache, pos)
     elif cfg.family == "ssm":
         x, cache = tf.ssm_stack(cfg, params.layers, x, states=cache)
     elif cfg.family == "hybrid":

@@ -143,17 +143,17 @@ def _moe_local(params, xt, cfg, mlp_kind, e_lo, e_local, cap, dp=None):
                        torch.full_like(k_sel, n_slots))   # row n_slots: drop
     src_tok = tok_idx[order]
     buf = xt.new_zeros((n_slots + 1, d))
-    buf[slot] = xt[src_tok]
+    # xt[src_tok] as a gather by the unique flat (token, choice) rows, so
+    # its backward scatters unique rows and sums over k in a fixed order
+    buf[slot] = xt[:, None].expand(t, k, d).reshape(t * k, d)[order]
     out = _expert_ffn(buf[:n_slots].reshape(e_local, cap, d), params.wi,
                       params.wo, mlp_kind).reshape(n_slots, d)
-    # combine: scatter each slot's output back to its token, weighted
+    # combine: each slot's output back to its token, weighted
     w_slot = gate_vals.reshape(t * k)[order].to(xt.dtype)
     contrib = out[torch.where(valid, slot, torch.zeros_like(slot))] \
         * w_slot[:, None]
     contrib = torch.where(valid[:, None], contrib, torch.zeros_like(contrib))
-    y = xt.new_zeros((t + 1, d))
-    y.index_add_(0, torch.where(valid, src_tok, torch.full_like(src_tok, t)),
-                 contrib)
+    y = _combine(contrib, src_tok, valid, t, k)
     # Switch-style load-balance aux over the global routing statistics
     if dp is None:
         # the mean as a sum over t (jnp.mean's division), as the data-
@@ -167,7 +167,30 @@ def _moe_local(params, xt, cfg, mlp_kind, e_lo, e_local, cap, dp=None):
         me = par.reduce_from(probs.sum(dim=0), dp.batch) / t_all
         ce = torch.clamp(every.sum(dim=0), max=cap).float() / t_all
     aux = e * torch.sum(me * ce) / k
-    return y[:t], aux
+    return y, aux
+
+
+def _combine(contrib, src_tok, valid, t: int, k: int) -> torch.Tensor:
+    """(t, D): each token's valid ``contrib`` rows added in their slot
+    order, from zeros, in f32, rounded once to ``contrib``'s dtype: what
+    the CPU's sequential ``index_add_`` computes (in bf16 too: it
+    accumulates in f32), in that fixed order on every device (CUDA's
+    ``index_add_`` adds in atomic order).  Entry j's rank among its
+    token's entries places it at ``[token, rank]`` of a (t + 1, k, D)
+    tensor (unique indices for the valid entries: no add, and the
+    backward is a gather); a left fold over ``k`` sums it."""
+    n, d = contrib.shape
+    tok = torch.where(valid, src_tok, torch.full_like(src_tok, t))
+    by_tok = torch.argsort(tok, stable=True)
+    seg = torch.searchsorted(tok[by_tok], tok[by_tok], side="left")
+    rank = torch.empty_like(tok)
+    rank[by_tok] = torch.arange(n, device=tok.device) - seg
+    c = contrib.new_zeros((t + 1, k, d))
+    c[tok, rank.clamp(max=k - 1)] = contrib
+    y = torch.zeros((t, d), dtype=torch.float32, device=contrib.device)
+    for j in range(k):
+        y = y + c[:t, j].float()
+    return y.to(contrib.dtype)
 
 
 def moe_layer(params, x, cfg, *, mlp_kind="swiglu"):
@@ -277,6 +300,7 @@ def _gather(t, mesh, axes):
         if n == 1:
             continue
         parts = [torch.empty_like(t) for _ in range(n)]
+        par.tally("all_gather", t, n)
         dist.all_gather(parts, t.contiguous(), group=mesh.get_group(a))
         t = torch.cat(parts)
     return t
@@ -314,6 +338,7 @@ def _moe_parallel(params, x, cfg, mlp_kind, mesh, sizes):
         if mlp is not None:
             y = y + gated_mlp(_tp_slice(mlp, me, n_ep), xt, mlp_kind)
     y = y.contiguous()
+    par.tally("all_reduce", y)
     dist.all_reduce(y, group=mesh.get_group("model"))
     y = _gather(y.reshape(bl, s, d), mesh, ba)
     aux = _gather(aux.reshape(1), mesh, ba)[0]

@@ -38,7 +38,11 @@ identity).  Without an active context every function here is the
 one-device code, op for op.  ``all_reduce_buckets`` sums the gradients
 over the batch axes in place (all but the FSDP leaves, whose
 ``gather_from_data`` backward already reduced them over ``data``).
-``COUNTS`` counts every collective called (``chip_smoke.py`` reads it).
+``COUNTS`` counts every collective called (``chip_smoke.py`` reads it),
+and ``BYTES`` the bytes of their results by kind, as the reference's
+``roofline.collective_bytes`` counts an HLO collective's output shape
+(``launch.op_walk`` reads it; ``tally`` adds a collective made outside
+these wrappers, as the search's ``all_gather``s).
 
 ``torch.distributed`` is imported where it is used, so importing this
 module starts nothing.
@@ -53,15 +57,21 @@ import torch
 
 # every collective called, by kind
 COUNTS: collections.Counter = collections.Counter()
+# the bytes of every collective's result, by kind
+BYTES: collections.Counter = collections.Counter()
 # gradients below this many bytes share a flat buffer for their all_reduce
 BUCKET_BYTES = 64 << 20
 
 
 class Groups(NamedTuple):
-    """A rank's process groups in a training mesh, with its index and
-    the group's size along each: ``model``; the batch axes (``pod``,
-    ``data``); ``data`` alone (ZeRO-1, the experts' FSDP); every rank of
-    the mesh; ``pod`` alone (None without a ``pod`` axis)."""
+    """A rank's process groups in a mesh, with its index and the group's
+    size along each: ``model``; the batch axes (``pod``, ``data``);
+    ``data`` alone (ZeRO-1, the experts' FSDP); every rank of the mesh;
+    ``pod`` alone (None without a ``pod`` axis).  ``fsdp``/``fsdp_size``:
+    the group that the FSDP leaves are sliced over, where it is not
+    ``data`` (the dry run's multi-pod mesh widens it to the batch axes).
+    ``kv_split``: a decode cache whose positions split over the batch
+    axes (a global batch of 1, replicated over them)."""
     model: object
     model_size: int
     model_rank: int
@@ -73,6 +83,9 @@ class Groups(NamedTuple):
     data_rank: int
     mesh: object
     pod: object = None
+    fsdp: object = None
+    fsdp_size: int = 1
+    kv_split: bool = False
 
 
 # a process-wide setting, not a context variable: on the card the
@@ -125,10 +138,16 @@ def _dist():
     return dist
 
 
+def tally(kind: str, result: torch.Tensor, copies: int = 1) -> None:
+    """Add ``copies`` x ``result``'s bytes to ``BYTES[kind]``."""
+    BYTES[kind] += copies * result.numel() * result.element_size()
+
+
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """Reduce the contiguous ``t`` over ``group`` in place; returns it."""
     dist = _dist()
     COUNTS["all_reduce"] += 1
+    tally("all_reduce", t)
     dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=group)
     return t
@@ -138,6 +157,7 @@ def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
     """``t`` of ``group``'s rank ``src`` on every rank of it, in place."""
     dist = _dist()
     COUNTS["broadcast"] += 1
+    tally("broadcast", t)
     dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
     return t
 
@@ -153,6 +173,7 @@ def gather_stack(t: torch.Tensor, group, size: int) -> torch.Tensor:
     COUNTS["all_gather"] += 1
     out = torch.empty((size * t.shape[0],) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
+    tally("all_gather", out)
     _dist().all_gather_into_tensor(out, t.contiguous(), group=group)
     return out.view((size,) + tuple(t.shape))
 
@@ -166,6 +187,7 @@ def reduce_scatter_dim(t: torch.Tensor, dim: int, group,
     c = t.shape[dim] // size
     blocks = t.unflatten(dim, (size, c)).movedim(dim, 0).contiguous()
     out = torch.empty(blocks.shape[1:], dtype=t.dtype, device=t.device)
+    tally("reduce_scatter", out)
     _dist().reduce_scatter_tensor(out, blocks.flatten(0, 1), group=group)
     return out
 
@@ -239,7 +261,11 @@ def gather_from_data(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The ranks' FSDP slices along ``dim``, concatenated over ``data``
     (a reduce-scatter into this rank's slice backward)."""
     g = active()
-    return x if g is None else _Gather.apply(x, dim, g.data, g.data_size)
+    if g is None:
+        return x
+    if g.fsdp is not None:
+        return _Gather.apply(x, dim, g.fsdp, g.fsdp_size)
+    return _Gather.apply(x, dim, g.data, g.data_size)
 
 
 def join_from_model(x: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,10 @@ the loss and its backward run under ``parallel_context(groups)`` (the
 models' tensor-parallel collectives, the global mean), then the
 gradients are summed over the batch axes by bucketed ``all_reduce``s
 (``parallel.all_reduce_buckets``; ``loss_and_grads``), and
-``adamw.update`` takes each rank's ZeRO-1 slices.  The FSDP leaves
+``adamw.update`` takes each rank's ZeRO-1 slices.  The serve steps take
+the same ``groups``: prefill and decode then run on the rank's slices,
+its rows of the batch and its block of the cache (``M.init_cache(...,
+mesh=)``), and return its vocab columns of the logits.  The FSDP leaves
 (a spec that splits over ``data``: the MoE experts' ``wi``/``wo``) are
 left out of those ``all_reduce``s: the layer regathers them with
 ``gather_from_data``, whose backward reduce-scatters their gradient
@@ -70,7 +73,7 @@ def loss_and_grads(cfg: ArchConfig, model, batch, *, remat: bool = True,
         fsdp = _fsdp_leaves(model)
         par.all_reduce_buckets([g for n, g in grads.items()
                                 if n not in fsdp], groups.batch)
-        if groups.pod is not None:
+        if groups.pod is not None and groups.fsdp is None:
             par.all_reduce_buckets([grads[n] for n in sorted(fsdp)],
                                    groups.pod)
     return loss, grads
@@ -100,15 +103,17 @@ def make_eval_step(cfg: ArchConfig):
     return step
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, *, groups: par.Groups | None = None):
     @torch.no_grad()
     def step(params, batch, cache):
-        return M.prefill(cfg, params, batch, cache)
+        with par.parallel_context(groups):
+            return M.prefill(cfg, params, batch, cache)
     return step
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, *, groups: par.Groups | None = None):
     @torch.no_grad()
     def step(params, tokens, cache, pos):
-        return M.decode_step(cfg, params, tokens, cache, pos)
+        with par.parallel_context(groups):
+            return M.decode_step(cfg, params, tokens, cache, pos)
     return step

@@ -1035,3 +1035,29 @@ def test_hnsw_on_the_card_matches_the_cpu(dev):
             np.testing.assert_array_equal(a[2]["hops"], b[2]["hops"])
         hops[eng.mode] = a[2]["hops"].mean()
     assert hops["catapult"] < hops["plain"]
+
+
+def test_moe_step_repeats_itself_without_deterministic_mode(dev):
+    """Reduced deepseek-moe-16b's loss and every gradient, twice on the
+    card with ``torch.use_deterministic_algorithms`` off, bit for bit:
+    the MoE combine adds each token's slots in a fixed order
+    (``models.moe._combine``) and the dispatch gather's backward
+    scatters unique rows."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as M
+    from repro_torch.models.steps import loss_and_grads
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = dataclasses.replace(get_reduced("deepseek-moe-16b"),
+                              dtype="float32")
+    model = M.init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 64),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    runs = [loss_and_grads(cfg, model, batch) for _ in range(2)]
+    (loss_a, grads_a), (loss_b, grads_b) = runs
+    assert torch.equal(loss_a, loss_b)
+    assert grads_a.keys() == grads_b.keys()
+    for name in grads_a:
+        assert torch.equal(grads_a[name], grads_b[name]), name
